@@ -81,12 +81,12 @@ def main(argv=None) -> None:
     from ..datasets import build_dataset
     from ..models import build_model
     from ..runtime import dump_obj, load_params, symlink_force
-    from ..runtime.weights import load_checkpoint
+    from ..runtime.checkpoint import load_checkpoint
 
     params = load_params(args.params)
     params.load_mask = False
     model = build_model(params, device=args.device)
-    model.load_state_dict(load_checkpoint(args.weight))
+    model.load_state_dict(load_checkpoint(args.weight)["state_dict"])
 
     save_path = args.save_path
     if not save_path:

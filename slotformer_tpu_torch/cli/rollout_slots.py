@@ -76,12 +76,12 @@ def main(argv=None) -> None:
 
     from ..models import build_model
     from ..runtime import dump_obj, load_obj, load_params, symlink_force
-    from ..runtime.weights import load_checkpoint
+    from ..runtime.checkpoint import load_checkpoint
 
     params = load_params(args.params)
     params.loss_dict["use_img_recon_loss"] = False
     model = build_model(params, device=args.device)
-    model.load_state_dict(load_checkpoint(args.weight))
+    model.load_state_dict(load_checkpoint(args.weight)["state_dict"])
 
     all_slots = load_obj(params.slots_root)
     out = {}

@@ -1,4 +1,5 @@
-"""Datasets of the port; ``build_dataset`` dispatches on ``params.dataset``."""
+"""Datasets of the port; ``build_dataset`` dispatches on ``params.dataset``
+and returns (train, val), or val alone with ``val_only``."""
 
 from .clevrer import CLEVRERDataset, build_clevrer_dataset
 from .synthetic import SyntheticVideoDataset, build_synthetic_dataset

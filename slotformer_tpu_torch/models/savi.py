@@ -1,4 +1,4 @@
-"""StoSAVi, the port of ``slotformer_tpu/models/savi.py`` (inference path).
+"""StoSAVi, the port of ``slotformer_tpu/models/savi.py``.
 
 Layouts: ``img`` is NHWC ``[B, T, H, W, 3]`` in [-1, 1], as in the JAX
 package; the CNNs run in NCHW inside.
@@ -15,11 +15,14 @@ top-level names (see ``_adopt``). The reference's vestigial
 
 The temporal recurrence is a Python loop over frames. Kernel-sampling noise
 comes from ``sample_eps`` ([B, T, S, D], the parity-test hook) or else from
-the ``torch.Generator`` the caller passes.
+the ``torch.Generator`` the caller passes. The JAX ``deterministic`` flag
+(predictor dropout) is ``module.training`` here: the trainer switches
+``train()``/``eval()`` around ``train_loss``/``eval_loss``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -195,10 +198,16 @@ class StoSAVi(nn.Module):
         self.num_iterations = sd.get("num_iterations", 2)
         ld = loss_dict or {}
         self.use_post_recon_loss = ld.get("use_post_recon_loss", True)
-        # 'var-<prior variance>' samples the SA kernels, 'none' does not
-        kld_method = ld.get("kld_method", "var-0.01").split("-")[0]
+        # 'var-<prior variance>' samples the SA kernels and penalises their
+        # KLD to a prior of that variance; 'none' does neither
+        kld_method = ld.get("kld_method", "var-0.01")
+        kld_var = 1.0
+        if "-" in kld_method:
+            kld_method, kld_var = kld_method.split("-")
         if kld_method not in ("var", "none"):
             raise ValueError(f"kld_method {kld_method!r}")
+        self.kld_method = kld_method
+        self.kld_log_var = math.log(float(kld_var))
 
         self.init_latents = nn.Parameter(
             torch.randn(1, self.num_slots, self.slot_size))
@@ -277,3 +286,30 @@ class StoSAVi(nn.Module):
         out["post_recons"] = recons.reshape(B, T, *recons.shape[1:])
         out["post_masks"] = masks.reshape(B, T, *masks.shape[1:])
         return out
+
+    # ---------------------------------------------------------------- losses
+    def _kld_loss(self, kernel_dist: torch.Tensor) -> torch.Tensor:
+        """KLD(N(mu, sigma) || N(stopgrad(mu), prior_sigma)): no mu penalty."""
+        if self.kld_method == "none":
+            return kernel_dist.new_zeros(())
+        log_var = kernel_dist[..., self.slot_size:]
+        kld = (0.5 * (self.kld_log_var - log_var)
+               + torch.exp(log_var) / (2.0 * math.exp(self.kld_log_var)) - 0.5)
+        return kld.sum(-1).mean()
+
+    def calc_train_loss(self, batch: dict, out: dict) -> dict:
+        loss = {"kld_loss": self._kld_loss(out["kernel_dist"])}
+        if self.use_post_recon_loss:
+            loss["post_recon_loss"] = (
+                (out["post_recon_combined"] - out["img"]) ** 2).mean()
+        return loss
+
+    def train_loss(self, batch: dict,
+                   generator: Optional[torch.Generator] = None) -> dict:
+        """The loss dict of ``batch`` (call in ``train()`` mode)."""
+        return self.calc_train_loss(batch, self(batch, generator=generator))
+
+    def eval_loss(self, batch: dict,
+                  generator: Optional[torch.Generator] = None) -> dict:
+        """The loss dict of ``batch`` (call in ``eval()`` mode)."""
+        return self.calc_train_loss(batch, self(batch, generator=generator))

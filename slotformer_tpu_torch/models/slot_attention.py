@@ -68,9 +68,16 @@ class SlotAttention(nn.Module):
                 kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> torch.Tensor:
         """``inputs`` [B, N, C] or precomputed ``kv`` = (k, v) [B, N, D];
-        ``slots`` [B, S, D] init."""
+        ``slots`` [B, S, D] init.
+
+        K1 computes in float32, as the JAX fused kernel does: under autocast
+        its inputs are cast to float32 and the slots back to k's dtype.
+        """
         k, v = self.project_kv(inputs) if kv is None else kv
-        slots, _ = fused_slot_attention(
-            k, v, slots.contiguous(), self.fused_weights(), self.num_iterations,
-            self.num_slots, self.slot_size ** -0.5, self.eps)
-        return slots
+        with torch.autocast(k.device.type, enabled=False):
+            wp = {n: w.float() for n, w in self.fused_weights().items()}
+            out, _ = fused_slot_attention(
+                k.float(), v.float(), slots.float().contiguous(), wp,
+                self.num_iterations, self.num_slots, self.slot_size ** -0.5,
+                self.eps)
+        return out.to(k.dtype)

@@ -1,6 +1,23 @@
-"""Host-side runtime: params, IO and the weight bridge."""
+"""Host-side runtime: params, IO, checkpoints, the data pipeline, the
+optimizer stack and the trainer."""
 
+from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from .datamodule import BaseDataModule, DataLoader, Dataset, default_collate
 from .io import dump_obj, load_obj, symlink_force
+from .meters import AverageMeter, MeanMetric, MeterBank
+from .method import BaseMethod
 from .params import BaseParams, load_params
+from .schedules import (
+    ScheduledOptimizer,
+    build_optimizer,
+    cosine_anneal,
+    cosine_annealing_warmup,
+)
 
-__all__ = ["BaseParams", "dump_obj", "load_obj", "load_params", "symlink_force"]
+__all__ = [
+    "AverageMeter", "BaseDataModule", "BaseMethod", "BaseParams", "DataLoader",
+    "Dataset", "MeanMetric", "MeterBank", "ScheduledOptimizer",
+    "build_optimizer", "cosine_anneal", "cosine_annealing_warmup",
+    "default_collate", "dump_obj", "latest_checkpoint", "load_checkpoint",
+    "load_obj", "load_params", "save_checkpoint", "symlink_force",
+]

@@ -19,7 +19,8 @@ whose keys are the reference torch layout. It is the inverse of
   * buffers that carry no learned value (the coordinate grids, the frozen
     sinusoidal PE) are rebuilt from the config.
 
-``load_checkpoint`` reads a reference-format ``{'state_dict': ...}`` file.
+``runtime.checkpoint.load_checkpoint`` reads a reference-format
+``{'state_dict': ...}`` file.
 """
 
 from __future__ import annotations
@@ -174,10 +175,3 @@ def from_jax_params(tree: dict, model_kind: str, cfg) -> StateDict:
     if model_kind == "SlotFormer":
         return _slotformer(tree, cfg)
     raise NotImplementedError(f"model {model_kind} is not ported yet")
-
-
-def load_checkpoint(path: str) -> StateDict:
-    """The state_dict of a reference-format checkpoint (``{'state_dict':
-    ...}``, or a bare state_dict), on the CPU."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return ckpt.get("state_dict", ckpt)
