@@ -10,20 +10,29 @@ exits non-zero:
                switched off for matmuls and cuDNN convolutions, so every
                comparison below is float32 against float32.
   2. build   - compile every CUDA kernel from ``slotformer_tpu_torch/kernels/csrc``
-               (one ``nvcc`` per source, all started together).
+               (one ``nvcc`` per source, all started together); prints each
+               kernel's registers and spills as ``ptxas`` reports them.
   3. kernel  - kernel K1 against its plain PyTorch version on the card at the
                CLEVRER extraction shape, a ragged N, S=8 and the training
-               batch (B=64); times both.
+               batch (B=64); a second call must give the same bits; times
+               both (K1 on weights packed beforehand, as the model calls
+               it, and with the packing inside every call), K1 also with k
+               and v cold in the L2 cache, the host's time to enqueue a
+               call, and the split of K1's device time between its sweep and
+               its slot-side kernels.
   4. kernel_update - kernel K2 against its plain version at the extraction
                shape, a ragged N with S=5 and the training batch, in values
-               and in gradients through its ``autograd.Function``; times
-               both; then drives K2's entry point once (forward and
-               backward) with its launch count reset.
+               and in gradients through its ``autograd.Function``; a second
+               call must give the same bits; times both, and the split
+               between its sweep and its finishing pass; then drives K2's
+               entry point once (forward and backward) with its launch
+               count reset.
   5. extract - the port's ``extract_video_slots`` with the full-width
                ``stosavi_clevrer`` config (random weights from a seed) over
                synthetic 64x64 videos, chunked with slot carry-over; checks
                the K1 launch count, and the same encode with K1 swapped for
-               its plain version.
+               its plain version; times the weight packing (once per
+               encode) against the K1 calls.
   6. train   - StoSAVi training at the full-width ``stosavi_clevrer`` config
                on synthetic clips: one train step on the card against the
                same step on the CPU and against the card with K1 swapped for
@@ -38,9 +47,13 @@ exits non-zero:
                steps, decoded to 64x64 (the shape ``bench.py`` times), then
                ``interleaved_rollout`` on the extracted slots.
 
-Then the card's ``nvidia-smi`` line, the kernels line (K1 at the training
-shape, with its launches in ``fit``; K2 at the extraction shape, with its
-launches through its entry point), and as the last line
+Then a line of constants for comparison (each kernel's time at the same case
+before it was redesigned for the H100, measured by an earlier version of this
+script on an NVIDIA H100 80GB HBM3 at 700 W; K1's included the weight packing
+in every call), the card's ``nvidia-smi`` line, the kernels line (K1 at the
+training shape, with its launches in ``fit``; K2 at the extraction shape, with
+its launches through its entry point; every number measured in this run but
+``bound_ms``, which is computed), and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -102,6 +115,41 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_split_ms(fn, parts, iters: int = 10):
+    """Device ms per call of ``fn`` spent in the kernels whose name contains
+    each of ``parts``, summed by ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {p: sum(e.self_device_time_total for e in kernels if p in e.key)
+            / 1e3 / iters for p in parts}
+
+
+def host_enqueue_ms(fn, iters: int = 100) -> float:
+    """Host ms per call of ``fn`` to check its input and enqueue its work,
+    the device's time not waited for."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / iters
+
+
 def wall_s(fn):
     import torch
 
@@ -153,6 +201,8 @@ def k1_inputs(B, N, D, S, H, seed):
 
 
 def phase_kernel():
+    import torch
+
     from slotformer_tpu_torch.kernels import slot_attention as k1
 
     results = {}
@@ -163,20 +213,53 @@ def phase_kernel():
         k, v, slots, wp = k1_inputs(B, N, D, S, H, seed=len(results))
         args = (k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
         got = k1.fused_slot_attention(*args)
+        again = k1.fused_slot_attention(*args)
         want = k1.fused_slot_attention_plain(*args)
+        torch.cuda.synchronize()
+        bit_stable = all(torch.equal(a, b) for a, b in zip(got, again))
         err_slots = (got[0] - want[0]).abs().max().item()
         err_attn = (got[1] - want[1]).abs().max().item()
-        ms = cuda_ms(lambda: k1.fused_slot_attention(*args))
+        packed = k1.pack_weights(wp)
+        call = lambda: k1.fused_slot_attention(k, v, slots, packed, *args[4:])  # noqa: E731
+        ms = cuda_ms(call)
+        host_ms = host_enqueue_ms(call)
+        unpacked_ms = cuda_ms(lambda: k1.fused_slot_attention(*args))
         plain_ms = cuda_ms(lambda: k1.fused_slot_attention_plain(*args))
+        split = kernel_split_ms(
+            call,
+            ("fused_slot_attention_sweep_kernel", "fused_slot_attention_slot_kernel"))
         bound_ms, bound_by = k1_bound(B, N, D, S, H, 2)
-        ok = err_slots <= K1_SLOTS_ATOL and err_attn <= K1_ATTN_ATOL
+        extra = {}
+        if tag in ("clevrer", "train_batch"):
+            # k and v cold in the 50 MB L2, as a caller that has just produced
+            # the k and v of many frames finds them: rotate over input sets
+            # of more than 100 MB in all
+            n_sets = max(2, -(-120_000_000 // (2 * k.numel() * 4)))
+            sets = [(torch.randn_like(k), torch.randn_like(v))
+                    for _ in range(n_sets)]
+            turn = iter(range(10 ** 9))
+
+            def cold_call():
+                kk, vv = sets[next(turn) % n_sets]
+                k1.fused_slot_attention(kk, vv, slots, packed, *args[4:])
+
+            extra["cold_l2_ms"] = cuda_ms(cold_call, iters=4 * n_sets)
+            del sets
+        ok = (err_slots <= K1_SLOTS_ATOL and err_attn <= K1_ATTN_ATOL
+              and bit_stable)
         emit(phase="kernel", name="fused_slot_attention", case=tag,
              shape=dict(B=B, N=N, D=D, S=S, H=H, iterations=2),
              max_abs_err_slots=err_slots, max_abs_err_attn=err_attn,
-             tol_slots=K1_SLOTS_ATOL, tol_attn=K1_ATTN_ATOL, ms=ms,
-             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+             tol_slots=K1_SLOTS_ATOL, tol_attn=K1_ATTN_ATOL,
+             bit_stable=bit_stable, ms=ms, host_enqueue_ms=host_ms,
+             ms_packing_each_call=unpacked_ms,
+             sweep_kernels_ms=split["fused_slot_attention_sweep_kernel"],
+             slot_kernels_ms=split["fused_slot_attention_slot_kernel"],
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             **extra, ok=ok)
         if not ok:
-            raise AssertionError(f"K1 disagrees with its plain version ({tag})")
+            raise AssertionError(f"K1 disagrees with its plain version or "
+                                 f"with itself ({tag})")
         results[tag] = dict(max_abs_err=max(err_slots, err_attn), ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by)
@@ -200,7 +283,10 @@ def phase_kernel_update():
         k, v = (torch.randn(B, N, D, generator=g).cuda() for _ in range(2))
         q = (torch.randn(B, S, D, generator=g) * D ** -0.5).cuda()
         upd, attn = slot_attention_update(k, v, q)
+        again = slot_attention_update(k, v, q)
         want_upd, want_attn = k2.slot_attention_update_plain(k, v, q)
+        torch.cuda.synchronize()
+        bit_stable = torch.equal(again[0], upd) and torch.equal(again[1], attn)
         err_upd = (upd - want_upd).abs().max().item()
         err_attn = (attn - want_attn).abs().max().item()
 
@@ -215,17 +301,27 @@ def phase_kernel_update():
         grads_ok = all(torch.allclose(a, b, rtol=K2_GRAD_RTOL, atol=K2_GRAD_ATOL)
                        for a, b in zip(got_g, want_g))
         ms = cuda_ms(lambda: slot_attention_update(k, v, q))
+        host_ms = host_enqueue_ms(lambda: slot_attention_update(k, v, q))
         plain_ms = cuda_ms(lambda: k2.slot_attention_update_plain(k, v, q))
+        split = kernel_split_ms(
+            lambda: slot_attention_update(k, v, q),
+            ("slot_attention_update_sweep_kernel",
+             "slot_attention_update_finish_kernel"))
         bound_ms, bound_by = k2_bound(B, N, D, S)
-        ok = err_upd <= K2_UPD_ATOL and err_attn <= K2_ATTN_ATOL and grads_ok
+        ok = (err_upd <= K2_UPD_ATOL and err_attn <= K2_ATTN_ATOL and grads_ok
+              and bit_stable)
         emit(phase="kernel_update", name="slot_attention_update", case=tag,
              shape=dict(B=B, N=N, D=D, S=S), max_abs_err_upd=err_upd,
              max_abs_err_attn=err_attn, max_abs_err_grads=err_grad,
              tol_upd=K2_UPD_ATOL, tol_attn=K2_ATTN_ATOL,
-             tol_grads=dict(rtol=K2_GRAD_RTOL, atol=K2_GRAD_ATOL), ms=ms,
+             tol_grads=dict(rtol=K2_GRAD_RTOL, atol=K2_GRAD_ATOL),
+             bit_stable=bit_stable, ms=ms, host_enqueue_ms=host_ms,
+             sweep_kernel_ms=split["slot_attention_update_sweep_kernel"],
+             finish_kernel_ms=split["slot_attention_update_finish_kernel"],
              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
         if not ok:
-            raise AssertionError(f"K2 disagrees with its plain version ({tag})")
+            raise AssertionError(f"K2 disagrees with its plain version or "
+                                 f"with itself ({tag})")
         results[tag] = dict(max_abs_err=max(err_upd, err_attn), ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by)
@@ -253,7 +349,8 @@ def phase_kernel_update():
     return results, launches
 
 
-def phase_extract():
+def phase_extract(k1_ms):
+    """``k1_ms``: one K1 call at the extraction shape, from the kernel phase."""
     from unittest import mock
 
     import numpy as np
@@ -275,8 +372,15 @@ def phase_extract():
     run = lambda: extract_video_slots(model, ds, batch_size, chunk_len, seed=0)  # noqa: E731
     run()  # warm-up: cuDNN algorithm choice, allocator
     k1.LAUNCHES = 0
-    slots, dt = wall_s(run)
+    slot_attention = model.cell.slot_attention
+    with mock.patch.object(slot_attention, "packed_weights",
+                           wraps=slot_attention.packed_weights) as packs:
+        slots, dt = wall_s(run)
     launches = k1.LAUNCHES
+    pack_calls = packs.call_count
+    n_packs = 50
+    _, pack_dt = wall_s(lambda: [slot_attention.packed_weights()
+                                 for _ in range(n_packs)])
     frame_steps = -(-n_videos // batch_size) * T
     with mock.patch.object(sa_module, "fused_slot_attention",
                            k1.fused_slot_attention_plain):
@@ -285,12 +389,20 @@ def phase_extract():
     shapes_ok = all(s.shape == (T, 7, 128) and s.dtype == np.float32
                     for s in slots.values()) and len(slots) == n_videos
     finite = all(np.isfinite(s).all() for s in slots.values())
-    ok = shapes_ok and finite and launches == frame_steps and err <= EXTRACT_ATOL
+    encodes = -(-n_videos // batch_size) * -(-T // chunk_len)
+    ok = (shapes_ok and finite and launches == frame_steps
+          and pack_calls == encodes and err <= EXTRACT_ATOL)
     emit(phase="extract", config="stosavi_clevrer", videos=n_videos, frames=T,
          batch_size=batch_size, chunk_len=chunk_len, seconds=dt,
          frames_per_s=n_videos * T / dt, k1_launches=launches,
          frame_steps=frame_steps, max_abs_err_vs_plain=err, tol=EXTRACT_ATOL,
-         finite=finite, shapes_ok=shapes_ok, ok=ok)
+         finite=finite, shapes_ok=shapes_ok,
+         pack_weights=dict(calls=pack_calls, encodes=encodes,
+                           ms_each=1e3 * pack_dt / n_packs,
+                           ms_in_run=1e3 * pack_dt / n_packs * pack_calls),
+         k1=dict(calls=launches, ms_each=k1_ms, ms_in_run=k1_ms * launches,
+                 share_of_run=k1_ms * launches / (1e3 * dt)),
+         ok=ok)
     if not ok:
         raise AssertionError("extraction check failed")
     return slots, launches
@@ -430,7 +542,7 @@ def phase_train():
                    if e.device_type == DeviceType.CUDA]
         device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         k1_ms = sum(e.self_device_time_total for e in kernels
-                    if "fused_slot_attention_kernel" in e.key) / 1e3
+                    if "fused_slot_attention_" in e.key) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         top_kernels = [(e.key[:80], e.count, e.self_device_time_total / 1e3)
                        for e in top]
@@ -545,15 +657,26 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.build()
+    ptxas = [line.strip() for name in build.KERNEL_SOURCES
+             for line in build.build_log(name).splitlines()
+             if "Compiling entry function" in line or "registers" in line
+             or "spill" in line]
     emit(phase="build", sources=list(build.KERNEL_SOURCES),
-         seconds=time.perf_counter() - t0)
+         seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     k1_results = phase_kernel()
     k2_results, k2_launches = phase_kernel_update()
-    slots, extract_launches = phase_extract()
+    slots, extract_launches = phase_extract(k1_results["clevrer"]["ms"])
     train_launches = phase_train()
     phase_rollout(slots)
 
+    # not measured here: what the earlier kernels took at the cases of the
+    # kernels line (K1 with its weights packed inside every call, as
+    # ms_packing_each_call above still times it)
+    emit(phase="record", what="ms before the H100 redesign, same cases, NVIDIA "
+         "H100 80GB HBM3 at 700 W, from this script's earlier version",
+         previous_ms=dict(fused_slot_attention=2.276,
+                          slot_attention_update=0.0911))
     print(smi, flush=True)
     k1, k2 = k1_results["train_batch"], k2_results["clevrer"]
     emit(kernels=[

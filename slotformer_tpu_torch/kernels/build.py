@@ -4,11 +4,14 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``build/kernels/lib<name>-<hash>.so`` under the repository root, with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+         -Xcompiler -fPIC -Xptxas -v -I csrc
 
-then opened with ``ctypes``. The file name carries a hash of the source, so
-an edited source builds anew and a stale library is never loaded. Nothing is
-built or imported when this module is imported.
+then opened with ``ctypes``. The sources share headers (``csrc/*.cuh``), so
+the file name carries a hash of every file under ``csrc``: an edited source
+or header builds anew and a stale library is never loaded. The compiler's
+output (``-Xptxas -v``: each kernel's registers, shared memory and spills)
+is kept beside the library as ``lib<name>-<hash>.log``. Nothing is built or
+imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("slot_attention", "slot_attention_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -39,9 +42,22 @@ def _nvcc() -> str:
     return path
 
 
+def source_digest() -> str:
+    """A hash of every file under ``csrc`` (names and contents)."""
+    h = hashlib.sha1()
+    for path in sorted(CSRC.iterdir()):
+        if path.is_file():
+            h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:12]
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{source_digest()}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the last build of ``csrc/<name>.cu``."""
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> None:
@@ -65,6 +81,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> None:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: concurrent builders race safely
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

@@ -9,7 +9,10 @@ q [B, S, D]:
 
 computed in float32 and cast back to the input dtype, as the JAX function
 does. ``slot_attention_update`` launches the kernel
-(``csrc/slot_attention_update.cu``) for CUDA tensors and runs
+(``csrc/slot_attention_update.cu``: a sweep over N split over the card,
+shared with kernel K1 through ``csrc/slot_attention_sweep.cuh``, and a
+finishing pass; two launches a call, counted as one in ``LAUNCHES``) for
+CUDA tensors and runs
 ``slot_attention_update_plain`` for CPU tensors; its gradient differentiates
 the plain version, as the JAX ``custom_vjp`` differentiates
 ``_jnp_reference``. No model calls it: like the JAX function, it is an entry
@@ -24,7 +27,7 @@ from typing import Tuple
 import torch
 
 S_PAD = 8  # the kernel's slot capacity
-MAX_D = 1024  # q [S_PAD, D] lives in the kernel's shared memory
+MAX_D = 256  # two stages of k and v tiles live in the kernel's shared memory
 
 # Kernel launches since the last reset; incremented once per launch.
 LAUNCHES = 0
@@ -57,18 +60,29 @@ def _library():
     return lib
 
 
+def _check_layout(k, v, q) -> None:
+    """Raises on a D or an alignment the kernel's 16-byte copies do not take."""
+    D = k.shape[2]
+    if D % 4 or D > MAX_D:
+        raise ValueError(f"the kernel takes D that is a multiple of 4 and "
+                         f"<= {MAX_D}, got D={D} (k {tuple(k.shape)})")
+    for name, t in (("k", k), ("v", v), ("q", q)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"(shape {tuple(t.shape)}, offset "
+                             f"{t.storage_offset()})")
+
+
 def _launch(k, v, q, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """k, v, q: contiguous float32 CUDA tensors, checked by the caller."""
     global LAUNCHES
     B, N, D = k.shape
     S = q.shape[1]
-    if D > MAX_D:
-        raise ValueError(f"the kernel takes D <= {MAX_D}, got {D}")
+    _check_layout(k, v, q)
     lib = _library()
-    upd = torch.empty((B, S, D), device=k.device, dtype=torch.float32)
-    attn = torch.empty((B, N, S), device=k.device, dtype=torch.float32)
-    work = torch.empty(lib.slot_attention_update_workspace_floats(B, N, D),
-                       device=k.device, dtype=torch.float32)
+    upd = k.new_empty((B, S, D))
+    attn = k.new_empty((B, N, S))
+    work = k.new_empty(lib.slot_attention_update_workspace_floats(B, N, D))
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream(k.device).cuda_stream
         err = lib.slot_attention_update_f32(
@@ -105,8 +119,8 @@ def slot_attention_update(k, v, q, eps: float = 1e-6):
 
     k/v: [B, N, D] projected inputs; q: [B, S, D] already scaled by
     D**-0.5; S <= 8. Computed in float32, returned in k's dtype. CPU tensors
-    run the plain version; CUDA tensors launch the kernel, and anything else
-    raises.
+    run the plain version; CUDA tensors launch the kernel, which takes D that
+    is a multiple of 4 and <= 256, and anything else raises.
     """
     if k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"k/v must both be [B, N, D]: {tuple(k.shape)} "
@@ -126,7 +140,11 @@ def slot_attention_update(k, v, q, eps: float = 1e-6):
     if k.device.type == "cpu":
         upd, attn = slot_attention_update_plain(k, v, q, eps)
     elif k.device.type == "cuda":
-        upd, attn = _SlotAttentionUpdate.apply(float(eps), k, v, q)
+        if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad
+                                        or q.requires_grad):
+            upd, attn = _SlotAttentionUpdate.apply(float(eps), k, v, q)
+        else:  # nothing to differentiate: no autograd bookkeeping
+            upd, attn = _launch(k, v, q, float(eps))
     else:
         raise ValueError(f"no kernel for device {k.device}")
     return upd.to(dtype), attn.to(dtype)

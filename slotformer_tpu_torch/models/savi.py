@@ -76,9 +76,12 @@ class SAViCell(nn.Module):
 
     def forward(self, carry, kv_t, is_first: bool,
                 eps_t: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                sa_weights: Optional[dict] = None):
         """``carry`` = (slots [B, S, D], predictor state); ``kv_t`` = this
-        frame's (k, v). Returns (carry, (kernel_dist, post_slots))."""
+        frame's (k, v); ``sa_weights``: ``SlotAttention.packed_weights()``,
+        packed in this step when not given. Returns (carry, (kernel_dist,
+        post_slots))."""
         slots, pred_state = carry
         if is_first:
             # a fresh video: SA is seeded from the init latents themselves
@@ -98,7 +101,8 @@ class SAViCell(nn.Module):
             kernels = mu + eps_t * torch.exp(0.5 * log_var)
         else:
             kernels = mu
-        post_slots = self.slot_attention(None, kernels, kv=kv_t)
+        post_slots = self.slot_attention(None, kernels, kv=kv_t,
+                                         weights=sa_weights)
         return (post_slots, pred_state), (kernel_dist, post_slots)
 
 
@@ -256,11 +260,16 @@ class StoSAVi(nn.Module):
         slots = self.init_latents.expand(B, -1, -1) if first else prev_slots
         carry = (slots, self.init_pred_state(B) if pred_state is None
                  else pred_state)
+        # the slot-attention weights do not change between the frame steps:
+        # packed into the kernel's buffers once per encode, never kept
+        # across calls (an optimizer step may lie between two of them)
+        sa_weights = self.cell.slot_attention.packed_weights()
         kernel_dist, post_slots = [], []
         for t in range(T):
             eps_t = None if sample_eps is None else sample_eps[:, t]
             carry, (kd, ps) = self.cell(carry, (k_all[t], v_all[t]),
-                                        first and t == 0, eps_t, generator)
+                                        first and t == 0, eps_t, generator,
+                                        sa_weights)
             kernel_dist.append(kd)
             post_slots.append(ps)
         return (torch.stack(kernel_dist, 1), torch.stack(post_slots, 1),

@@ -4,7 +4,11 @@ Parameter names follow the reference (``norm_inputs``, ``project_q.{0,1}``,
 ``project_k``, ``project_v``, ``gru``, ``mlp.{0,1,3}``). The iteration loop
 is kernel K1 (``kernels.slot_attention.fused_slot_attention``), which
 launches the CUDA kernel for CUDA tensors and runs its plain version for CPU
-tensors; it computes the same function as the JAX module's jnp loop.
+tensors; it computes the same function as the JAX module's jnp loop. The
+kernel takes the weights packed into its own buffers: ``packed_weights``
+builds them, and a caller that runs the module several times on unchanged
+parameters (``StoSAVi.encode`` over the frames of a clip) packs once and
+passes the result to every call.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.slot_attention import fused_slot_attention
+from ..kernels.slot_attention import fused_slot_attention, pack_weights
 from .nn import LayerNorm
 
 
@@ -64,20 +68,32 @@ class SlotAttention(nn.Module):
             w2=mlp_out.weight.t(), b2=mlp_out.bias,
         )
 
+    def packed_weights(self) -> Dict[str, torch.Tensor]:
+        """``fused_weights`` in float32, packed into kernel K1's buffers;
+        differentiable with respect to the module's parameters. Valid until
+        the parameters change: pack anew after every optimizer step."""
+        device = self.gru.weight_ih.device.type
+        with torch.autocast(device, enabled=False):
+            return pack_weights(
+                {n: w.float() for n, w in self.fused_weights().items()})
+
     def forward(self, inputs: Optional[torch.Tensor], slots: torch.Tensor,
-                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                weights: Optional[Dict[str, torch.Tensor]] = None
                 ) -> torch.Tensor:
         """``inputs`` [B, N, C] or precomputed ``kv`` = (k, v) [B, N, D];
-        ``slots`` [B, S, D] init.
+        ``slots`` [B, S, D] init; ``weights``: the result of
+        ``packed_weights``, packed here when not given.
 
         K1 computes in float32, as the JAX fused kernel does: under autocast
         its inputs are cast to float32 and the slots back to k's dtype.
         """
         k, v = self.project_kv(inputs) if kv is None else kv
+        if weights is None:
+            weights = self.packed_weights()
         with torch.autocast(k.device.type, enabled=False):
-            wp = {n: w.float() for n, w in self.fused_weights().items()}
             out, _ = fused_slot_attention(
-                k.float(), v.float(), slots.float().contiguous(), wp,
+                k.float(), v.float(), slots.float().contiguous(), weights,
                 self.num_iterations, self.num_slots, self.slot_size ** -0.5,
                 self.eps)
         return out.to(k.dtype)

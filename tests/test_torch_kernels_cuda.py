@@ -10,13 +10,17 @@ sides are float32 (TF32 off) but sum in different orders; the attention is a
 softmax in [0, 1] and the slots are O(1) after two GRU/MLP rounds. K2: 1e-5
 abs on the attention and 1e-4 on the updates (tests/test_pallas_ops.py's
 tolerances; the updates are weighted means of O(1) values over N pixels).
+Neither kernel uses atomics, so a second call on the same inputs must give the
+same bits.
 """
 
 import importlib
+import shutil
 
 import pytest
 import torch
 
+from slotformer_tpu_torch.kernels import build
 from slotformer_tpu_torch.kernels import slot_attention as k1
 from slotformer_tpu_torch.kernels import slot_attention_update
 
@@ -144,3 +148,95 @@ def test_update_kernel_raises_instead_of_falling_back(cuda):
     k, v, q = _update_inputs(1, 64, 2048, 4, cuda)
     with pytest.raises(ValueError):
         slot_attention_update(k, v, q)  # D above the kernel's shared memory
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,S,H", [(8, 4096, 128, 7, 256),
+                                       (3, 1000, 128, 5, 256)])
+def test_kernel_is_bit_stable(cuda, B, N, D, S, H):
+    k, v, slots, wp = _inputs(B, N, D, S, H, cuda, seed=2)
+    first = k1.fused_slot_attention(k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
+    # other work in between, then packed weights: still the same bits
+    k1.fused_slot_attention(v, k, slots, wp, 2, S, D ** -0.5, 1e-6)
+    again = k1.fused_slot_attention(k, v, slots, k1.pack_weights(wp), 2, S,
+                                    D ** -0.5, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1000, 4097])
+@pytest.mark.parametrize("S", range(1, 9))
+def test_kernels_at_chunk_ragged_n_and_every_slot_count(cuda, N, S):
+    B, D, H = 2, 128, 256
+    k, v, slots, wp = _inputs(B, N, D, S, H, cuda, seed=S)
+    got = k1.fused_slot_attention(k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
+    want = k1.fused_slot_attention_plain(k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
+    assert (got[0] - want[0]).abs().max().item() < 1e-4
+    assert (got[1] - want[1]).abs().max().item() < 1e-5
+    q = slots * D ** -0.5
+    upd, attn = slot_attention_update(k, v, q)
+    want_upd, want_attn = k2.slot_attention_update_plain(k, v, q)
+    torch.cuda.synchronize()
+    assert (attn - want_attn).abs().max().item() < 1e-5
+    assert (upd - want_upd).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(66, 4097), (33, 8200)])
+def test_kernels_at_the_large_batch_chunk(cuda, B, N):
+    """B * N large enough for chunks of 512 pixels, the last one ragged, and
+    for clusters that take several batch elements, the last one short."""
+    D, S, H = 128, 7, 256
+    k, v, slots, wp = _inputs(B, N, D, S, H, cuda, seed=3)
+    got = k1.fused_slot_attention(k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
+    want = k1.fused_slot_attention_plain(k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
+    assert (got[0] - want[0]).abs().max().item() < 1e-4
+    assert (got[1] - want[1]).abs().max().item() < 1e-5
+    q = slots * D ** -0.5
+    upd, attn = slot_attention_update(k, v, q)
+    want_upd, want_attn = k2.slot_attention_update_plain(k, v, q)
+    torch.cuda.synchronize()
+    assert (attn - want_attn).abs().max().item() < 1e-5
+    assert (upd - want_upd).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d_not_multiple_of_4", "d_above_256",
+                                  "h_not_multiple_of_4",
+                                  "h_above_1024_per_block", "misaligned"])
+def test_kernels_raise_on_what_the_redesign_refuses(cuda, case):
+    D = dict(d_not_multiple_of_4=18, d_above_256=260,
+             h_above_1024_per_block=4).get(case, 32)
+    H = dict(h_not_multiple_of_4=30, h_above_1024_per_block=2052).get(case, 64)
+    k, v, slots, wp = _inputs(2, 64, D, 4, H, cuda)
+    if case == "misaligned":
+        k = torch.randn(2 * 64 * D + 1, device=cuda)[1:].reshape(2, 64, D)
+    before = k1.LAUNCHES, k2.LAUNCHES
+    with pytest.raises(ValueError):
+        k1.fused_slot_attention(k, v, slots, wp, 2, 4)
+    if not case.startswith("h_"):
+        with pytest.raises(ValueError):
+            slot_attention_update(k, v, slots)
+    assert (k1.LAUNCHES, k2.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_build_picks_up_an_edited_header(cuda, tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "NVCC_FLAGS",
+                        build.NVCC_FLAGS[:-1] + (str(csrc),))
+    monkeypatch.setattr(build, "_LIBS", {})
+    name = "slot_attention_update"
+    build.load(name)
+    first = build._lib_path(name)
+    assert first.is_file() and "registers" in build.build_log(name)
+    with open(csrc / "slot_attention_sweep.cuh", "a") as f:
+        f.write("// edited\n")
+    monkeypatch.setattr(build, "_LIBS", {})
+    build.load(name)
+    second = build._lib_path(name)
+    assert second != first and second.is_file()

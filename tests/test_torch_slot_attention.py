@@ -83,7 +83,9 @@ def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
 
 def test_autograd_function_grads_equal_plain_autograd(monkeypatch):
     """The Function's backward (autograd of the plain version), with its
-    forward stood in by the plain version, as no kernel runs on the CPU."""
+    forward stood in by the plain version, as no kernel runs on the CPU.
+    The Function takes the packed weights; the gradients reach the unpacked
+    ones through ``pack_weights``."""
     monkeypatch.setattr(k1, "_launch", k1.fused_slot_attention_plain)
     r = rng(3)
     B, N, D, S, H = 2, 24, 16, 5, 32
@@ -100,7 +102,13 @@ def test_autograd_function_grads_equal_plain_autograd(monkeypatch):
     args = (2, S, D ** -0.5, 1e-6)
     want = grads(lambda xs: k1.fused_slot_attention_plain(
         *xs[:3], dict(zip(k1.WP_KEYS, xs[3:])), *args))
-    got = grads(lambda xs: k1._FusedSlotAttention.apply(*args, *xs))
+
+    def through_function(xs):
+        packed = k1.pack_weights(dict(zip(k1.WP_KEYS, xs[3:])))
+        return k1._FusedSlotAttention.apply(
+            *args, *xs[:3], *[packed[n] for n in k1.PACKED_KEYS])
+
+    got = grads(through_function)
     for a, b in zip(got, want):
         close(a, b.numpy(), rtol=1e-6, atol=1e-6)
 
