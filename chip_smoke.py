@@ -46,6 +46,33 @@ exits non-zero:
                ``slotformer_clevrer`` config, B=16, 6 burn-in + 48 rollout
                steps, decoded to 64x64 (the shape ``bench.py`` times), then
                ``interleaved_rollout`` on the extracted slots.
+  8. slots_file - ``extract_video_slots`` with a full-width StoSAVi (random
+               weights from a seed) over a train and a val split of
+               synthetic 48-frame 64x64 videos, through K1, written as the
+               ``{'train': ..., 'val': ...}`` slots file with ``dump_obj``;
+               the StoSAVi checkpoint is the source of the grafted decoder.
+               Counts the K1 launches of this path.
+  9. train_slotformer - SlotFormer training at the full-width
+               ``slotformer_clevrer`` config (7 slots x 128, d_model 256, 4
+               layers, 8 heads, 6 burn-in + 10 rollout frames at frame
+               offset 2, B=128) on that slots file: one step at B=2 on the
+               card against the same step on the CPU for the plain, chunked
+               and custom-backward image-loss branches (losses, every
+               rollouter gradient, and d(loss)/d(pred_slots) between the
+               branches), the bf16 branch against the card's own float32
+               value; then ``cli.train.run`` for two epochs with the loss
+               decay ramp on (finite losses, the factor in the log, the
+               decoder bit-equal to the grafted checkpoint's, a checkpoint
+               that reloads); then steps/s, a profiled step (rollouter
+               forward, image loss, backward, optimizer, the device's idle
+               share, the largest kernels) and the time and peak memory of a
+               step under each image-loss branch.
+ 10. test_vp - ``cli.test_vp.main`` on the val slots and the checkpoint just
+               trained, 6 + 42 frames, batch 8, masks on: every metric
+               finite, the trajectory path ran, ``percept_dist`` labelled
+               untrained; one ``pred_eval_step`` on the card against the
+               same call on the CPU; rollout frames/s with and without the
+               metrics.
 
 Then a line of constants for comparison (each kernel's time at the same case
 before it was redesigned for the H100, measured by an earlier version of this
@@ -54,8 +81,10 @@ in every call), the card's ``nvidia-smi`` line, the kernels line (K1 at the
 training shape, with its launches in ``fit``; K2 at the extraction shape, with
 its launches through its entry point; every number measured in this run but
 ``bound_ms``, which is computed), and as the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
-prints no result.
+``{"ok": true, "device": {...}}``. K1's ``launches_by_path`` also counts the
+encode of the slots file that SlotFormer trains on and ``test_vp`` evaluates
+(SlotFormer itself launches no kernel of this repository: it reads K1's
+slots). Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -64,6 +93,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # K1 tolerances. Both sides are float32 with TF32 off but sum in different
@@ -88,12 +118,26 @@ K2_ATTN_ATOL, K2_UPD_ATOL, K2_GRAD_RTOL, K2_GRAD_ATOL = 1e-5, 1e-4, 1e-4, 1e-5
 # run in other orders on the card and on the CPU, and the differences pass
 # through 6 recurrent frame steps and back.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+# One SlotFormer train step at B=2 on the card against the CPU, float32 on
+# both: 10 autoregressive transformer steps, then the decoder over 140 slot
+# images, and back. The bf16 branch is held to the card's own float32 value
+# at tests/test_models.py:495-530's tolerances (bfloat16 keeps 8 bits).
+SF_LOSS_RTOL, SF_GRAD_RTOL = 1e-4, 1e-3
+SF_BF16_IMG_RTOL, SF_BF16_SLOT_RTOL = 3e-2, 2e-5
+# pred_eval_step on the card against the CPU: the pixel metrics are float32
+# means over 64x64 frames (LPIPS through 13 convolutions); ARI and mIoU come
+# from exact integer counts whose float32 sums may round in another order;
+# the box matching is discrete.
+VP_PIXEL_RTOL, VP_CLUSTER_ATOL = 1e-4, 1e-5
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "slotformer_tpu_torch", "configs")
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+
+
+DEVICE = "cuda"  # every phase runs on the card
 
 
 def emit(**fields) -> None:
@@ -495,7 +539,13 @@ def phase_train():
             params, ckp, device="cuda", san_check_val_step=1))
         launches, steps = k1.LAUNCHES, method.it
         val_batches = 1 + len(method.val_loader)  # sanity check + epoch end
-        expected = T * (steps + val_batches)
+        # the decomposition video of the epoch's end encodes n_samples whole
+        # val videos, one K1 call a frame
+        val_set = method.val_loader.dataset
+        sampled = min(int(params.get("n_samples", 0)), val_set.num_videos)
+        sampled_frames = sampled * len(range(0, val_set.video_len,
+                                             val_set.frame_offset))
+        expected = T * (steps + val_batches) + sampled_frames
         with open(os.path.join(ckp, "log.jsonl")) as f:
             log = [json.loads(line) for line in f]
         train_log = [r for r in log if r["phase"] == "train"]
@@ -565,7 +615,8 @@ def phase_train():
     emit(phase="train", check="fit", config="stosavi_clevrer", batch=64,
          frames_per_clip=T, steps=steps, fit_seconds=fit_s,
          k1_launches=launches, k1_launches_expected=expected,
-         val_batches=val_batches, finite=finite, checkpoint=os.path.basename(last),
+         val_batches=val_batches, sampled_video_frames=sampled_frames,
+         finite=finite, checkpoint=os.path.basename(last),
          reloaded=reloaded, last_train=train_log[-1] if train_log else None,
          steps_per_s=n_steps / dt, frames_per_s=n_steps * 64 * T / dt,
          profiled_step=dict(forward_ms=fwd_ms, backward_ms=bwd_ms,
@@ -635,6 +686,409 @@ def phase_rollout(slots_dict):
         raise AssertionError("rollout check failed")
 
 
+# ------------------------------------------------- SlotFormer training, test_vp
+
+# the new path's data: synthetic 64x64 videos long enough for a 16-frame
+# clip at frame offset 2 (training) and for a 48-frame clip (test_vp)
+SF_DATA = dict(video_len=48, num_videos_train=24, num_videos_val=24,
+               extract_batch=8, chunk_len=24)
+SF_SMALL_CHUNK = 10  # the B=2 step: 20 rollout frames in 2 chunks
+BRANCHES = {  # loss_dict settings of the image-loss branches
+    "plain": dict(dec_chunk_frames=0, dec_recon_bf16=False, dec_custom_bwd=False),
+    "chunked": dict(dec_chunk_frames=160, dec_recon_bf16=False, dec_custom_bwd=False),
+    "bf16": dict(dec_chunk_frames=0, dec_recon_bf16=True, dec_custom_bwd=False),
+    "custom": dict(dec_chunk_frames=0, dec_recon_bf16=False, dec_custom_bwd=True),
+    "custom_chunked": dict(dec_chunk_frames=160, dec_recon_bf16=False,
+                           dec_custom_bwd=True),
+}
+
+
+def _set_branch(model, branch, chunk=None):
+    for k, v in BRANCHES[branch].items():
+        setattr(model, k, v)
+    if chunk is not None and model.dec_chunk_frames:
+        model.dec_chunk_frames = chunk
+
+
+def slotformer_params(slots_path, dec_ckp, **over):
+    """The shipped ``slotformer_clevrer`` config on the synthetic slots file."""
+    from slotformer_tpu_torch.runtime import load_params
+
+    params = load_params(os.path.join(CONFIGS, "slotformer_clevrer_params.py"))
+    params.dataset = "synthetic_slots"
+    params.slots_root = slots_path
+    params.dec_dict["dec_ckp_path"] = dec_ckp
+    for k in ("video_len", "num_videos_train", "num_videos_val"):
+        setattr(params, k, SF_DATA[k])
+    for k, v in over.items():
+        setattr(params, k, v)
+    return params
+
+
+def phase_slots_file(workdir):
+    """Encode the train and val videos to the slots file through K1; returns
+    (slots path, StoSAVi checkpoint path, K1 launches)."""
+    import numpy as np
+    import torch
+
+    from slotformer_tpu_torch.cli.extract_slots import extract_video_slots
+    from slotformer_tpu_torch.datasets import SyntheticVideoDataset
+    from slotformer_tpu_torch.kernels import slot_attention as k1
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import dump_obj, load_params, save_checkpoint
+
+    params = load_params(os.path.join(CONFIGS, "stosavi_clevrer_params.py"))
+    torch.manual_seed(3)
+    savi = build_model(params, device=DEVICE)
+    savi_ckp = os.path.join(workdir, "stosavi", "model_0.pth")
+    save_checkpoint(savi_ckp, {k: v.cpu() for k, v in savi.state_dict().items()})
+    T, bs = SF_DATA["video_len"], SF_DATA["extract_batch"]
+    sets = {split: SyntheticVideoDataset(
+                split, num_videos=SF_DATA[f"num_videos_{split}"], video_len=T,
+                resolution=params.resolution, frame_offset=params.frame_offset)
+            for split in ("train", "val")}
+    k1.LAUNCHES = 0
+    slots, dt = wall_s(lambda: {
+        split: extract_video_slots(savi, ds, bs, SF_DATA["chunk_len"], seed=0)
+        for split, ds in sets.items()})
+    launches = k1.LAUNCHES
+    slots_path = os.path.join(workdir, "synthetic_slots.pkl")
+    dump_obj(slots, slots_path)
+    n_videos = sum(len(v) for v in slots.values())
+    frame_steps = sum(-(-len(ds.files) // bs) for ds in sets.values()) * T
+    shapes_ok = all(s.shape == (T, 7, 128) and s.dtype == np.float32
+                    and np.isfinite(s).all()
+                    for v in slots.values() for s in v.values())
+    ok = (shapes_ok and launches == frame_steps
+          and {k: len(v) for k, v in slots.items()}
+          == {k: len(ds.files) for k, ds in sets.items()})
+    emit(phase="slots_file", config="stosavi_clevrer", videos=n_videos,
+         frames=T, seconds=dt, frames_per_s=n_videos * T / dt,
+         k1_launches=launches, frame_steps=frame_steps, shapes_ok=shapes_ok,
+         file_mb=os.path.getsize(slots_path) / 1e6, ok=ok)
+    if not ok:
+        raise AssertionError("slots file check failed")
+    return slots_path, savi_ckp, launches
+
+
+def _sf_step(model, batch, weights, factor=1.0):
+    """Losses, rollouter gradients and d(loss)/d(pred_slots) of one
+    dropout-free SlotFormer train step (no optimizer)."""
+    import torch
+
+    model.eval()  # dropout-free: train_loss does not look at the mode
+    model.zero_grad(set_to_none=True)
+    seen = {}
+
+    def keep_grad(mod, args, out):  # returns None: the output stays as it is
+        out.register_hook(lambda g: seen.__setitem__("dpred", g.detach().cpu()))
+
+    hook = model.rollouter.register_forward_hook(keep_grad)
+    try:
+        losses = model.train_loss(batch, loss_decay_factor=factor)
+        sum(weights.get(n, 1.0) * v for n, v in losses.items()).backward()
+    finally:
+        hook.remove()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    if any(n.startswith("decoder") for n in grads):
+        raise AssertionError("the frozen decoder got a weight gradient")
+    return {n: v.item() for n, v in losses.items()}, grads, seen["dpred"]
+
+
+def phase_train_slotformer(slots_path, savi_ckp, workdir):
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from slotformer_tpu_torch.cli import train as train_cli
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.methods import build_method
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import (BaseDataModule, graft,
+                                              latest_checkpoint, load_checkpoint)
+
+    params = slotformer_params(slots_path, savi_ckp, max_epochs=2,
+                               eval_interval=2, print_iter=1,
+                               use_loss_decay=True, loss_decay_pct=0.5)
+    weights = params.loss_weights()
+    B = params.train_batch_size
+
+    # (a) one step at B=2: card vs CPU per branch, the branches between them
+    train_set, _ = build_dataset(params)
+    items = [train_set[i] for i in (0, len(train_set) // 2)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in ("slots", "img")}
+    torch.manual_seed(4)
+    gpu = build_model(params, device=DEVICE)
+    gpu.load_state_dict(graft(gpu.state_dict(), load_checkpoint(savi_ckp),
+                              ("decoder", "decoder_pos_embedding")))
+    cpu = build_model(params, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    for m in (gpu, cpu):
+        for n, p in m.named_parameters():
+            p.requires_grad_(not n.startswith("decoder"))
+    gbatch = {k: v.to(DEVICE) for k, v in batch.items()}
+    checks, dpreds, f32_losses = {}, {}, None
+    for branch in ("plain", "chunked", "custom", "custom_chunked"):
+        for m in (gpu, cpu):
+            _set_branch(m, branch, chunk=SF_SMALL_CHUNK)
+        l_gpu, g_gpu, dpreds[branch] = _sf_step(gpu, gbatch, weights, 0.5)
+        l_cpu, g_cpu, _ = _sf_step(cpu, batch, weights, 0.5)
+        loss_err = max(abs(l_gpu[n] / l_cpu[n] - 1) for n in l_cpu)
+        grad_err, worst = _grad_errors(g_gpu, g_cpu)
+        checks[branch] = dict(losses_card=l_gpu, loss_rel_err_vs_cpu=loss_err,
+                              grad_rel_err_vs_cpu=grad_err, worst_param=worst,
+                              n_grads=len(g_cpu))
+        f32_losses = f32_losses or l_gpu
+    ref = dpreds["plain"]
+    dpred_err = {b: ((d - ref).abs().max() / ref.abs().max()).item()
+                 for b, d in dpreds.items() if b != "plain"}
+    _set_branch(gpu, "bf16")
+    l_bf16, g_bf16, _ = _sf_step(gpu, gbatch, weights, 0.5)
+    bf16_err = {n: abs(l_bf16[n] / f32_losses[n] - 1) for n in l_bf16}
+    step_ok = (
+        all(c["loss_rel_err_vs_cpu"] <= SF_LOSS_RTOL
+            and c["grad_rel_err_vs_cpu"] <= SF_GRAD_RTOL for c in checks.values())
+        and max(dpred_err.values()) <= SF_GRAD_RTOL
+        and bf16_err["img_recon_loss"] <= SF_BF16_IMG_RTOL
+        and bf16_err["slot_recon_loss"] <= SF_BF16_SLOT_RTOL
+        and all(torch.isfinite(g).all() for g in g_bf16.values()))
+    emit(phase="train_slotformer", check="one_step", batch=2,
+         chunk_frames=SF_SMALL_CHUNK, branches=checks,
+         dpred_rel_err_vs_plain=dpred_err, bf16_loss_rel_err_vs_f32=bf16_err,
+         tol=dict(loss_rtol=SF_LOSS_RTOL, grad_rel=SF_GRAD_RTOL,
+                  bf16_img_rtol=SF_BF16_IMG_RTOL,
+                  bf16_slot_rtol=SF_BF16_SLOT_RTOL), ok=step_ok)
+    if not step_ok:
+        raise AssertionError("SlotFormer train step: the card disagrees with "
+                             "the CPU, or the branches with each other")
+    del gpu, cpu
+
+    # (b) fit at B=128 through the CLI's code, the shipped branch (chunked)
+    ckp = os.path.join(workdir, "slotformer")
+    params.seed = 0
+    method, fit_s = wall_s(lambda: train_cli.run(
+        params, ckp, device=DEVICE, san_check_val_step=1))
+    model, steps = method.model, method.it
+    nc = -(-B * model.rollout_len // model.dec_chunk_frames)
+    with open(os.path.join(ckp, "log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    train_log = [r for r in log if r["phase"] == "train"]
+    finite = bool(train_log) and all(
+        np.isfinite(r[k]) for r in log for k in r
+        if k.endswith("loss") or k == "grad_norm")
+    decay_steps = params.loss_decay_pct * method.total_steps
+    ramp = [min(0.01 + i / decay_steps * 0.99, 1.0) for i in range(steps)]
+    factors = [r.get("loss_decay_factor") for r in train_log]
+    ramp_ok = len(factors) == steps and bool(np.allclose(factors, ramp, rtol=1e-6))
+    savi_sd = load_checkpoint(savi_ckp)["state_dict"]
+    dec_keys = [k for k in model.state_dict() if k.startswith("decoder")]
+    frozen = len(dec_keys) == 13 and all(
+        torch.equal(model.state_dict()[k].cpu(), savi_sd[k]) for k in dec_keys)
+    last = latest_checkpoint(ckp)
+    torch.manual_seed(123)
+    fresh = build_method(model=build_model(params, device=DEVICE),
+                         datamodule=BaseDataModule(params, *build_dataset(params)),
+                         params=params, ckp_path=ckp)
+    fresh.load_ckp(last)
+    reloaded = fresh.it == steps and all(
+        torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                          fresh.model.state_dict().values()))
+    del fresh
+    videos = sorted(os.listdir(os.path.join(ckp, "vis")))
+
+    # (c) steady-state steps/s, one profiled step, then each branch
+    loader_batch = next(iter(method.train_loader))
+    method._train_step(loader_batch)
+    n_steps = 5
+    _, dt = wall_s(lambda: [method._train_step(loader_batch)
+                            for _ in range(n_steps)])
+    opt = method.optimizer
+    db = method._to_device(loader_batch)
+    model.train()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.profiler.profile(activities=acts) as prof:
+        ev[0].record()
+        slots = db["slots"]
+        pred = model.rollouter(slots[:, :model.history_len], model.rollout_len)
+        losses = model.calc_train_loss(
+            db, {"gt_slots": slots[:, model.history_len:], "pred_slots": pred})
+        ev[1].record()
+        # the chunked branch: every chunk's decode and its backward to the
+        # slots happen here, inside the loss's forward
+        losses["img_recon_loss"] = model._chunked_img_recon_loss(db, pred, nc)
+        ev[2].record()
+        sum(weights.get(n, 1.0) * v for n, v in losses.items()).backward()
+        ev[3].record()
+        opt.step(method.it)
+        opt.zero_grad()
+        ev[4].record()
+        torch.cuda.synchronize()
+    ro_ms, img_ms, bwd_ms, opt_ms = (ev[i].elapsed_time(ev[i + 1])
+                                     for i in range(4))
+    step_ms = ro_ms + img_ms + bwd_ms + opt_ms
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    conv_ms = sum(e.self_device_time_total for e in kernels
+                  if any(w in e.key.lower() for w in
+                         ("conv", "cudnn", "dgrad", "wgrad", "winograd", "fft"))) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top_kernels = [(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                   for e in top]
+    del prof, losses, pred
+
+    def branch_step(held=None):
+        model.zero_grad(set_to_none=True)
+        ls = model.train_loss(db)
+        total = sum(weights.get(n, 1.0) * v for n, v in ls.items())
+        if held is not None:  # what the graph keeps for the backward
+            torch.cuda.synchronize()
+            held.append(torch.cuda.memory_allocated())
+        total.backward()
+
+    by_branch = {}
+    for branch in BRANCHES:
+        _set_branch(model, branch)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        branch_step()  # warm-up: cuDNN algorithm choice, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, bdt = wall_s(lambda: [branch_step() for _ in range(2)])
+        peak, held = torch.cuda.max_memory_allocated(), []
+        branch_step(held)
+        # peak: the most allocated at any moment of a step, cuDNN's
+        # workspaces included; held: what is allocated between the forward
+        # and the backward (the saved state); both over what is resident
+        by_branch[branch] = dict(
+            fwd_bwd_ms=1e3 * bdt / 2, max_memory_allocated_gb=peak / 1e9,
+            peak_over_resident_gb=(peak - base) / 1e9,
+            held_for_backward_gb=(held[0] - base) / 1e9)
+    model.zero_grad(set_to_none=True)
+    _set_branch(model, "chunked")
+    ok = (steps == method.total_steps and steps >= 4 and finite and ramp_ok
+          and frozen and reloaded and last.endswith(f"model_{steps}.pth")
+          and videos == [f"rollout_{steps}.mp4"])
+    emit(phase="train_slotformer", check="fit", config="slotformer_clevrer",
+         batch=B, frames_per_clip=params.n_sample_frames,
+         rollout_frames_per_step=B * model.rollout_len, branch_of_config="chunked",
+         chunks=nc, steps=steps, fit_seconds=fit_s, finite=finite,
+         loss_decay_factors=factors, ramp_ok=ramp_ok, decoder_bit_frozen=frozen,
+         checkpoint=os.path.basename(last), reloaded=reloaded, videos=videos,
+         last_train=train_log[-1] if train_log else None,
+         steps_per_s=n_steps / dt,
+         rollout_frames_per_s=n_steps * B * model.rollout_len / dt,
+         profiled_step=dict(rollouter_forward_ms=ro_ms,
+                            img_loss_decoder_fwd_bwd_ms=img_ms,
+                            backward_ms=bwd_ms, optimizer_ms=opt_ms,
+                            decoder_share=img_ms / step_ms,
+                            device_busy_ms=device_ms,
+                            device_idle_share=1 - device_ms / step_ms,
+                            conv_kernels_ms=conv_ms,
+                            top_kernels_name_count_ms=top_kernels),
+         step_by_branch=by_branch, ok=ok)
+    if not ok:
+        raise AssertionError("SlotFormer training check failed")
+    return last
+
+
+def phase_test_vp(slots_path, weight, workdir):
+    import numpy as np
+    import torch
+
+    from slotformer_tpu_torch.cli import test_vp
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.metrics import (load_lpips, masks_to_boxes,
+                                              postproc_mask, pred_eval_step)
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import load_checkpoint, load_params
+
+    # the evaluation clip is 6 + 42 frames of the 48-frame videos, frame by
+    # frame (the synthetic dataset evaluates video_len frames)
+    cfg = os.path.join(workdir, "slotformer_synth_params.py")
+    with open(cfg, "w") as f:
+        f.write(
+            "from slotformer_tpu_torch.runtime import load_params\n\n"
+            "Shipped = type(load_params("
+            f"{os.path.join(CONFIGS, 'slotformer_clevrer_params.py')!r}))\n\n\n"
+            "class SlotFormerParams(Shipped):\n"
+            "    dataset = 'synthetic_slots'\n"
+            f"    slots_root = {slots_path!r}\n"
+            f"    video_len = {SF_DATA['video_len']}\n"
+            f"    num_videos_val = {SF_DATA['num_videos_val']}\n"
+            "    frame_offset = 1\n    num_workers = 4\n")
+    vis = os.path.join(workdir, "vis")
+    stats, dt = wall_s(lambda: test_vp.main(
+        ["--params", cfg, "--weight", weight, "--batch_size", "8",
+         "--vis_dir", vis, "--device", DEVICE]))
+    T_ro = SF_DATA["video_len"] - 6
+    results = stats["results"]
+    finite = (sorted(results) == sorted(test_vp.METRICS) and all(
+        v.shape == (T_ro,) and np.isfinite(v).all() for v in results.values()))
+    files = sorted(os.listdir(stats["save_dir"]))
+    files_ok = (sum(f.endswith(".npy") for f in files) == 8
+                and sum(f.endswith(".mp4") for f in files) == 3)
+    steady = stats["seconds_fwd"] + stats["seconds_metrics"]
+
+    # one pred_eval_step on the card against the same call on the CPU
+    params = test_vp.adjust_params(load_params(cfg), 8)
+    val_set = build_dataset(params, val_only=True)
+    items = [val_set[i] for i in range(2)]
+    b = {k: np.stack([it[k] for it in items])[:, 6:]
+         for k in ("slots", "img", "mask", "bbox", "pres_mask")}
+    model = build_model(params, device=DEVICE)
+    model.load_state_dict(load_checkpoint(weight)["state_dict"])
+    with torch.no_grad():
+        out = model({"slots": torch.from_numpy(
+            np.stack([it["slots"] for it in items])).to(DEVICE)})
+        pred_mask = postproc_mask(out["masks"])
+        pred_bbox = masks_to_boxes(pred_mask, 7)
+    pred = out["recon_combined"]
+    kw = dict(gt=b["img"], gt_mask=b["mask"].astype(np.int32),
+              gt_pres_mask=b["pres_mask"].astype(bool), gt_bbox=b["bbox"],
+              eval_traj=True, num_classes=7)
+    on_card = pred_eval_step(
+        pred=pred, pred_mask=pred_mask, pred_bbox=pred_bbox,
+        lpips_fn=load_lpips("", fallback="untrained", device=DEVICE), **kw)
+    on_cpu = pred_eval_step(
+        pred=pred.cpu(), pred_mask=pred_mask.cpu(), pred_bbox=pred_bbox.cpu(),
+        lpips_fn=load_lpips("", fallback="untrained", device="cpu"), **kw)
+    errs = {}
+    for k in on_cpu:
+        a, c = np.array(on_card[k]), np.array(on_cpu[k])
+        if k in ("mse", "psnr", "ssim", "percept_dist"):
+            errs[k] = float(np.abs(a / c - 1).max())
+        else:
+            errs[k] = float(np.abs(a - c).max())
+    agree = (all(errs[k] <= VP_PIXEL_RTOL
+                 for k in ("mse", "psnr", "ssim", "percept_dist"))
+             and all(errs[k] <= VP_CLUSTER_ATOL for k in ("ari", "fari", "miou"))
+             and errs["ap"] == 0.0 and errs["ar"] == 0.0)
+    ok = (finite and files_ok and stats["traj"]["batches"] > 0
+          and stats["percept_dist_source"] == "untrained" and agree
+          and stats["steady_frames"] > 0)
+    emit(phase="test_vp", config="slotformer_clevrer", batch=8, history=6,
+         rollout=T_ro, batches=stats["traj"]["batches"], seconds=dt,
+         first_batch_seconds=stats["seconds_first_batch"],
+         steady_frames=stats["steady_frames"],
+         frames_per_s_with_metrics=stats["steady_frames"] / steady,
+         frames_per_s_forward_only=stats["steady_frames"] / stats["seconds_fwd"],
+         metrics_share=stats["seconds_metrics"] / steady,
+         means={k: float(v.mean()) for k, v in results.items()},
+         traj=stats["traj"], percept_dist_source=stats["percept_dist_source"],
+         finite=finite, files_ok=files_ok,
+         card_vs_cpu=dict(errors=errs, pixel_rtol=VP_PIXEL_RTOL,
+                          cluster_atol=VP_CLUSTER_ATOL, discrete="equal",
+                          ok=agree),
+         ok=ok)
+    if not ok:
+        raise AssertionError("test_vp check failed")
+
+
 def main() -> int:
     import torch
 
@@ -669,6 +1123,10 @@ def main() -> int:
     slots, extract_launches = phase_extract(k1_results["clevrer"]["ms"])
     train_launches = phase_train()
     phase_rollout(slots)
+    with tempfile.TemporaryDirectory() as workdir:
+        slots_path, savi_ckp, sf_extract_launches = phase_slots_file(workdir)
+        sf_weight = phase_train_slotformer(slots_path, savi_ckp, workdir)
+        phase_test_vp(slots_path, sf_weight, workdir)
 
     # not measured here: what the earlier kernels took at the cases of the
     # kernels line (K1 with its weights packed inside every call, as
@@ -685,7 +1143,8 @@ def main() -> int:
              replaces="slotformer_tpu/ops/slot_attention_kernel.py:284",
              case="train_batch", launches=train_launches,
              launches_by_path=dict(train=train_launches,
-                                   extract=extract_launches),
+                                   extract=extract_launches,
+                                   slotformer_slots_file=sf_extract_launches),
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),

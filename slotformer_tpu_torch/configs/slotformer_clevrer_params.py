@@ -46,13 +46,14 @@ class SlotFormerParams(BaseParams):
         ffn_dim=D_MODEL * 4,
         norm_first=True,
     )
-    # frozen SAVi decoder, grafted from the pretrained encoder ckpt
+    # frozen SAVi decoder, grafted from the pretrained encoder checkpoint (one
+    # of cli.train's model_<it>.pth files, or a reference .pth)
     dec_dict = dict(
         dec_channels=(128, 64, 64, 64, 64),
         dec_resolution=(8, 8),
         dec_ks=5,
         dec_norm='',
-        dec_ckp_path='pretrained/stosavi_clevrer_params/model.ckpt.pkl',
+        dec_ckp_path='pretrained/stosavi_clevrer_params/model.pth',
     )
 
     # ---- losses: slot MSE + decoded-image MSE (key for pixel quality)

@@ -1,7 +1,8 @@
 """Synthetic bouncing-shapes video dataset, the port of
-``slotformer_tpu/datasets/synthetic.py`` (video part).
+``slotformer_tpu/datasets/synthetic.py``: the videos, and the videos joined
+with precomputed slots.
 
-Lets extraction and rollout run without downloading CLEVRER. Deterministic
+Lets every stage of the pipeline run without downloading CLEVRER. Deterministic
 given (split, index): colored squares/circles move with constant velocity and
 bounce off walls, rendered on a dark background in [-1, 1] NHWC float32.
 """
@@ -10,6 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 from torch.utils.data import Dataset
+
+from ..runtime.io import load_obj
+from .utils import masks_to_boxes_pad
 
 
 def _render_video(seed, video_len, res, num_objects,
@@ -120,6 +124,62 @@ class SyntheticVideoDataset(Dataset):
         return len(self.valid_idx)
 
 
+class SyntheticSlotsDataset(Dataset):
+    """Synthetic videos joined with precomputed slots ``{video_fn: [T, N,
+    C]}``: ``slots`` [T, N, C], with ``load_img`` also ``img``, with
+    ``load_mask`` also ``mask`` [T, H, W] (0 = background) and, from it,
+    ``bbox`` [T, max_n_objects + 1, 4] and ``pres_mask``."""
+
+    def __init__(self, video_dataset: SyntheticVideoDataset, video_slots: dict,
+                 n_sample_frames: int = 16, load_img: bool = False,
+                 load_mask: bool = False, max_n_objects: int = 4):
+        self.base = video_dataset
+        self.video_slots = video_slots
+        self.n_sample_frames = n_sample_frames
+        self.load_img = load_img
+        self.load_mask = load_mask
+        self.max_n_objects = max_n_objects
+        max_start = self.base.video_len - (n_sample_frames - 1) * self.base.frame_offset
+        if self.base.split == "train":
+            self.valid_idx = [
+                (v, s) for v in range(self.base.num_videos) for s in range(max_start)
+            ]
+        else:
+            self.valid_idx = [(v, 0) for v in range(self.base.num_videos)]
+
+    def __len__(self):
+        return len(self.valid_idx)
+
+    def __getitem__(self, idx):
+        video_idx, start = self.valid_idx[idx]
+        slots = self.video_slots[self.base.files[video_idx]]
+        off = self.base.frame_offset
+        sel = [start + n * off for n in range(self.n_sample_frames)]
+        out = {
+            "data_idx": idx,
+            "slots": np.stack([slots[s] for s in sel]).astype(np.float32),
+            "error_flag": False,
+        }
+        if self.load_img:
+            video, _ = self.base._video(video_idx)
+            out["img"] = video[sel].copy()
+        if self.load_mask:
+            _, masks = self.base._video(video_idx)
+            m = masks[sel]
+            out["mask"] = m.copy()
+            boxes = [
+                masks_to_boxes_pad(
+                    np.stack([(fr == c).astype(np.uint8)
+                              for c in range(1, self.max_n_objects + 1)]),
+                    self.max_n_objects + 1,
+                )
+                for fr in m
+            ]
+            out["bbox"] = np.stack([b[0] for b in boxes]).astype(np.float32)
+            out["pres_mask"] = np.stack([b[1] for b in boxes])
+        return out
+
+
 def build_synthetic_dataset(params, val_only=False):
     args = dict(
         split="val",
@@ -138,3 +198,33 @@ def build_synthetic_dataset(params, val_only=False):
     args["split"] = "train"
     args["num_videos"] = params.get("num_videos_train", 64)
     return SyntheticVideoDataset(**args), val_dataset
+
+
+def build_synthetic_slots_dataset(params, val_only=False):
+    slots = load_obj(params.slots_root)
+
+    def base(split, num_videos):
+        return SyntheticVideoDataset(
+            split=split,
+            num_videos=num_videos,
+            video_len=params.get("video_len", 20),
+            resolution=params.resolution,
+            n_sample_frames=params.n_sample_frames,
+            frame_offset=params.frame_offset,
+            num_objects=params.get("num_objects", 4),
+            obj_size_range=params.get("obj_size_range", (0.08, 0.16)),
+        )
+
+    val_dataset = SyntheticSlotsDataset(
+        base("val", params.get("num_videos_val", 16)), slots["val"],
+        params.n_sample_frames, params.get("load_img", False),
+        params.get("load_mask", False), params.get("num_objects", 4),
+    )
+    if val_only:
+        return val_dataset
+    # the training split never loads masks, as in the JAX package
+    train_dataset = SyntheticSlotsDataset(
+        base("train", params.get("num_videos_train", 64)), slots["train"],
+        params.n_sample_frames, params.get("load_img", False),
+    )
+    return train_dataset, val_dataset

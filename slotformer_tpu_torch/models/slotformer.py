@@ -1,19 +1,82 @@
-"""SlotFormer, the port of ``slotformer_tpu/models/slotformer.py``
-(inference path: rollout and decode; the losses come later).
+"""SlotFormer, the port of ``slotformer_tpu/models/slotformer.py``: rollout,
+decode and the training losses (``SingleStepSlotFormer``, the PHYRE variant,
+is not ported yet).
 
 State-dict layout as the reference: ``rollouter.*`` plus the frozen SAVi
 decoder's ``decoder.*`` and ``decoder_pos_embedding.*`` at the top level.
+
+The image-reconstruction loss decodes B * rollout_len frames through the
+frozen decoder, which is most of a training step's work and memory.
+``loss_dict`` picks how, as in the JAX package (precedence: custom > bf16 >
+chunked > plain):
+
+  * plain: decode everything, autograd through the decoder;
+  * ``dec_chunk_frames`` (default 160, 0 disables): decode in chunks of at
+    most that many frames. Each chunk's d(loss)/d(slots) is taken as soon as
+    the chunk is decoded (the decoder is frozen and the loss a scalar, so
+    nothing else is wanted from its graph) and only that [F, S, D] gradient
+    is kept: one chunk's activations are live at a time;
+  * ``dec_recon_bf16``: decode everything with the decoder's weights
+    (detached) and the slots cast to bfloat16, the error in float32;
+  * ``dec_custom_bwd``: ``ops.frozen_decoder_recon_loss``, whose backward
+    keeps bool ReLU masks in place of float activations; chunked like the
+    second branch, under one global normaliser.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..ops.frozen_decoder_loss import frozen_decoder_recon_loss
 from .nn import PosEnc, TransformerEncoder
 from .savi import SpatialBroadcastDecoder, _adopt
+
+
+def _pick_chunks(n_frames: int, max_chunk: int) -> int:
+    """Smallest chunk count that divides ``n_frames`` with chunks of at most
+    ``max_chunk`` frames (1 = no chunking)."""
+    if max_chunk <= 0 or n_frames <= max_chunk:
+        return 1
+    for nc in range(-(-n_frames // max_chunk), n_frames + 1):
+        if n_frames % nc == 0:
+            return nc
+    return 1
+
+
+class _ChunkedFrozenLoss(torch.autograd.Function):
+    """sum_i chunk_loss(i, slots_i) over ``nc`` equal chunks of ``slots``
+    [F, S, D], where nothing but ``slots`` wants a gradient. Each chunk's
+    gradient is computed right after its forward and its graph dropped, so
+    one chunk's activations are live at a time; [F, S, D] is all that is
+    saved."""
+
+    @staticmethod
+    def forward(ctx, slots, chunk_loss, nc):
+        total, grads = slots.new_zeros((), dtype=torch.float32), []
+        for i, s in enumerate(slots.chunk(nc)):
+            with torch.enable_grad():
+                s = s.detach().requires_grad_(True)
+                part = chunk_loss(i, s)
+                grads.append(torch.autograd.grad(part, s)[0])
+            total = total + part.detach().float()
+        ctx.save_for_backward(torch.cat(grads))
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        (dslots,) = ctx.saved_tensors
+        return dslots * g.to(dslots.dtype), None, None
+
+
+def _sum_chunks(slots: torch.Tensor, chunk_loss: Callable, nc: int):
+    """sum_i chunk_loss(i, slots_i); with gradients wanted, through
+    ``_ChunkedFrozenLoss``."""
+    if torch.is_grad_enabled() and slots.requires_grad:
+        return _ChunkedFrozenLoss.apply(slots, chunk_loss, nc)
+    return sum(chunk_loss(i, s).float() for i, s in enumerate(slots.chunk(nc)))
 
 
 class SlotRollouter(nn.Module):
@@ -84,8 +147,16 @@ class SlotFormer(nn.Module):
         self.history_len = rd.get("history_len", 6)
         self.rollouter = SlotRollouter(**rd)
         ld = loss_dict or {}
+        self.eps = eps
         self.rollout_len = ld.get("rollout_len", 6)
         self.use_img_recon_loss = ld.get("use_img_recon_loss", False)
+        # how the frozen decoder's image loss is computed: see the module
+        # docstring
+        self.dec_chunk_frames = int(ld.get("dec_chunk_frames", 160))
+        self.dec_recon_bf16 = bool(ld.get("dec_recon_bf16", False))
+        self.dec_custom_bwd = bool(ld.get("dec_custom_bwd", False))
+        if self.dec_custom_bwd and (dec_dict or {}).get("dec_norm", ""):
+            raise ValueError("dec_custom_bwd supports norm-free decoders only")
 
     def decode(self, slots: torch.Tensor):
         """Decode slots through the (frozen) SAVi decoder."""
@@ -124,3 +195,166 @@ class SlotFormer(nn.Module):
             return out
         return {"gt_slots": gt_slots,
                 "pred_slots": self.rollout(past_slots, self.rollout_len)}
+
+    # --------------------------------------------------------------- losses
+    def _valid(self, batch: dict, B: int, T_ro: int, device):
+        """[B, T_ro] bool: rollout frame t is inside its video (``vid_len``
+        masking, PHYRE), or None without ``vid_len``."""
+        vid_len = batch.get("vid_len")
+        if vid_len is None:
+            return None
+        t = torch.arange(T_ro, device=device) + self.history_len
+        return t[None] < vid_len.to(device)[:, None]
+
+    def calc_train_loss(self, batch: dict, out: dict,
+                        loss_decay_factor=1.0, training: bool = True) -> dict:
+        """Slot MSE (+ image MSE when ``out`` holds ``recon_combined``), with
+        the RPIN-style temporal decay and ``vid_len`` masking (reference
+        slotformer.py:284-328)."""
+        loss_dict = {}
+        gt_slots, pred_slots = out["gt_slots"], out["pred_slots"]
+        B, T_ro = gt_slots.shape[:2]
+        slots_err = (pred_slots - gt_slots) ** 2
+        if not training:
+            for s in range(min(6, T_ro)):
+                loss_dict[f"slot_recon_loss_{s + 1}"] = slots_err[:, s].mean()
+
+        # temporal decay, normalised to sum to T_ro
+        w = loss_decay_factor ** torch.arange(
+            T_ro, dtype=slots_err.dtype, device=slots_err.device)
+        w = w / w.sum() * T_ro
+        slots_loss = slots_err * w[None, :, None, None]
+
+        valid = self._valid(batch, B, T_ro, slots_err.device)
+        if valid is not None:
+            vw = valid[..., None, None].to(slots_loss.dtype)
+            loss_dict["slot_recon_loss"] = (slots_loss * vw).sum() / (
+                vw.sum() * slots_err.shape[-1] * slots_err.shape[-2] + self.eps)
+        else:
+            loss_dict["slot_recon_loss"] = slots_loss.mean()
+
+        if self.use_img_recon_loss and "recon_combined" in out:
+            gt_img = batch["img"][:, self.history_len:]
+            img_err = (out["recon_combined"] - gt_img) ** 2
+            if valid is not None:
+                iw = valid[..., None, None, None].to(img_err.dtype)
+                loss_dict["img_recon_loss"] = (img_err * iw).sum() / (
+                    iw.sum() * img_err[0, 0].numel() + self.eps)
+            else:
+                loss_dict["img_recon_loss"] = img_err.mean()
+        return loss_dict
+
+    def _flat_img_loss_inputs(self, batch: dict, pred_slots: torch.Tensor):
+        """(slots [F, S, D], gt [F, H, W, C], frame weights [F] float32 or
+        None without ``vid_len``) over the F = B * T_ro rollout frames."""
+        B, T_ro = pred_slots.shape[:2]
+        gt_img = batch["img"][:, self.history_len:]
+        flat_slots = pred_slots.reshape(B * T_ro, self.num_slots, self.slot_size)
+        flat_img = gt_img.reshape(B * T_ro, *gt_img.shape[2:])
+        valid = self._valid(batch, B, T_ro, pred_slots.device)
+        w = None if valid is None else valid.reshape(-1).float()
+        return flat_slots, flat_img, w
+
+    def _chunked_img_recon_loss(self, batch: dict, pred_slots: torch.Tensor,
+                                nc: int) -> torch.Tensor:
+        """Image MSE through the frozen decoder, ``nc`` chunks one after the
+        other (see ``dec_chunk_frames``); the value of the unchunked
+        ``calc_train_loss``, ``vid_len`` masking included."""
+        flat_slots, flat_img, w = self._flat_img_loss_inputs(batch, pred_slots)
+        n = flat_slots.shape[0] // nc
+
+        def chunk_sse(i, s):
+            recon = self.decode(s)[0]
+            err = ((recon - flat_img[i * n:(i + 1) * n]) ** 2).sum(dim=(1, 2, 3))
+            if w is not None:
+                err = err * w[i * n:(i + 1) * n].to(err.dtype)
+            return err.sum()
+
+        sse = _sum_chunks(flat_slots, chunk_sse, nc)
+        if w is not None:
+            return sse / (w.sum() * flat_img[0].numel() + self.eps)
+        return sse / flat_img.numel()
+
+    def _bf16_img_recon_loss(self, batch: dict,
+                             pred_slots: torch.Tensor) -> torch.Tensor:
+        """Whole-batch image MSE through the frozen decoder with its weights
+        (detached here, so no weight gradient ever sees the reduced
+        precision) and the slots cast to bfloat16; the error and its sum in
+        float32. The gradient still reaches the rollouter through the
+        bfloat16 decode."""
+        flat_slots, flat_img, w = self._flat_img_loss_inputs(batch, pred_slots)
+        dec = self.spatial_decoder
+        p16 = {k: (v.detach().to(torch.bfloat16) if v.is_floating_point()
+                   else v) for k, v in dec.state_dict(keep_vars=True).items()}
+        recon = torch.func.functional_call(
+            dec, p16, (flat_slots.to(torch.bfloat16),))[0]
+        err = (recon.float() - flat_img) ** 2
+        if w is None:
+            return err.mean()
+        return (err.sum(dim=(1, 2, 3)) * w).sum() / (
+            w.sum() * flat_img[0].numel() + self.eps)
+
+    def _custom_bwd_img_recon_loss(self, batch: dict,
+                                   pred_slots: torch.Tensor) -> torch.Tensor:
+        """Image MSE through ``ops.frozen_decoder_recon_loss`` (bool ReLU
+        masks saved, exact gradients). Composes with ``dec_chunk_frames``:
+        the chunks' losses are summed under one global normaliser."""
+        flat_slots, flat_img, w = self._flat_img_loss_inputs(batch, pred_slots)
+        n_frames = flat_slots.shape[0]
+        if w is not None:
+            denom = w.sum() * flat_img[0].numel() + self.eps
+        else:
+            w = flat_img.new_ones(n_frames, dtype=torch.float32)
+            denom = float(flat_img.numel())
+        dec = self.spatial_decoder
+        nc = _pick_chunks(n_frames, self.dec_chunk_frames)
+        if nc <= 1:
+            return frozen_decoder_recon_loss(dec, flat_slots, flat_img, w,
+                                             denom, self.num_slots)
+        n = n_frames // nc
+        return _sum_chunks(
+            flat_slots,
+            lambda i, s: frozen_decoder_recon_loss(
+                dec, s, flat_img[i * n:(i + 1) * n], w[i * n:(i + 1) * n],
+                denom, self.num_slots),
+            nc)
+
+    def train_loss(self, batch: dict, loss_decay_factor=1.0,
+                   generator: Optional[torch.Generator] = None) -> dict:
+        """The loss dict of ``batch`` (call in ``train()`` mode: the
+        rollouter's dropout then draws from torch's global RNG;
+        ``generator`` is the trainer's and is not used)."""
+        if not self.use_img_recon_loss:
+            branch = "plain"
+        elif self.dec_custom_bwd:
+            branch = "custom"
+        elif self.dec_recon_bf16:
+            branch = "bf16"
+        else:
+            nc = _pick_chunks(batch["slots"].shape[0] * self.rollout_len,
+                              self.dec_chunk_frames)
+            branch = "plain" if nc == 1 else "chunked"
+        if branch == "plain":
+            return self.calc_train_loss(
+                batch, self(batch), loss_decay_factor=loss_decay_factor)
+        # roll out without decoding: the slot loss from calc_train_loss, the
+        # image loss from the branch
+        slots = batch["slots"]
+        pred_slots = self.rollouter(slots[:, :self.history_len], self.rollout_len)
+        out = {"gt_slots": slots[:, self.history_len:], "pred_slots": pred_slots}
+        loss_dict = self.calc_train_loss(
+            batch, out, loss_decay_factor=loss_decay_factor)
+        if branch == "custom":
+            img_loss = self._custom_bwd_img_recon_loss(batch, pred_slots)
+        elif branch == "bf16":
+            img_loss = self._bf16_img_recon_loss(batch, pred_slots)
+        else:
+            img_loss = self._chunked_img_recon_loss(batch, pred_slots, nc)
+        loss_dict["img_recon_loss"] = img_loss
+        return loss_dict
+
+    def eval_loss(self, batch: dict,
+                  generator: Optional[torch.Generator] = None) -> dict:
+        """The loss dict of ``batch`` plus the per-step slot losses
+        ``slot_recon_loss_1..6`` (call in ``eval()`` mode)."""
+        return self.calc_train_loss(batch, self(batch), training=False)

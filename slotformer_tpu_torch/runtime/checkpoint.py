@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -38,6 +38,47 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     if "state_dict" not in ckpt:
         ckpt = {"state_dict": ckpt}
     return ckpt
+
+
+def graft(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor],
+          prefixes: Union[Sequence[str], Mapping[str, str]],
+          strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A copy of the flat state_dict ``dst`` whose keys under each prefix
+    hold ``src``'s tensors: the port of ``slotformer_tpu.runtime.checkpoint
+    .graft`` on the reference's key layout.
+
+    ``prefixes`` are top-level names (``'decoder'`` takes ``decoder.*``), or
+    a map from a name in ``dst`` to a name in ``src``. ``src`` is a
+    state_dict or a checkpoint dict holding one under ``'state_dict'``. A key
+    of a prefix that ``src`` lacks raises ``KeyError``; a shape that differs
+    or, with ``strict``, a key under the prefix that only ``src`` has raises
+    ``ValueError``. The inputs are not changed.
+    """
+    src = src.get("state_dict", src)
+    if not isinstance(prefixes, Mapping):
+        prefixes = {p: p for p in prefixes}
+    out = dict(dst)
+    for dst_prefix, src_prefix in prefixes.items():
+        keys = [k for k in dst if k.startswith(dst_prefix + ".")]
+        if not keys:
+            raise KeyError(f"graft: no key under {dst_prefix!r} in the target")
+        for k in keys:
+            sk = src_prefix + k[len(dst_prefix):]
+            if sk not in src:
+                raise KeyError(f"graft {dst_prefix!r}: source lacks {sk!r}")
+            if tuple(src[sk].shape) != tuple(dst[k].shape):
+                raise ValueError(
+                    f"graft {dst_prefix!r}: shape mismatch at {k}: "
+                    f"{tuple(dst[k].shape)} vs {tuple(src[sk].shape)}")
+            out[k] = src[sk].detach().clone()
+        if strict:
+            want = {src_prefix + k[len(dst_prefix):] for k in keys}
+            extra = sorted(k for k in src if k.startswith(src_prefix + ".")
+                           and k not in want)
+            if extra:
+                raise ValueError(f"graft {dst_prefix!r}: the source has keys "
+                                 f"the target lacks: {extra[:5]}")
+    return out
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

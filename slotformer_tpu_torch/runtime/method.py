@@ -46,9 +46,11 @@ def _to_cpu(obj):
 class BaseMethod:
     """Generic trainer for models following the loss-dict convention.
 
-    Model contract: ``train_loss(batch, generator=...) -> {name: scalar}`` (run in ``train()`` mode) and ``eval_loss(batch,
-    generator=...)`` (run in ``eval()`` mode); the total loss is the sum of
-    the losses weighted by the params' ``<name>_w``.
+    Model contract: ``train_loss(batch, generator=..., **extras) -> {name:
+    scalar}`` (run in ``train()`` mode; ``extras`` are the method's
+    ``train_loss_kwargs``) and ``eval_loss(batch, generator=...)`` (run in
+    ``eval()`` mode); the total loss is the sum of the losses weighted by
+    the params' ``<name>_w``.
     """
 
     # parameters excluded from optimization (e.g. SlotFormer's frozen decoder)
@@ -115,6 +117,12 @@ class BaseMethod:
         every weight."""
         self._ready = True
 
+    def train_loss_kwargs(self, step: int) -> Dict[str, float]:
+        """Scheduled scalars passed into ``model.train_loss``, as functions
+        of the index of the step about to be taken (0 for the first).
+        Subclasses override; the values are logged with the losses."""
+        return {}
+
     # ----------------------------------------------------------------- steps
     def _to_device(self, batch: dict) -> dict:
         """The array entries of a collated batch, as tensors on the device."""
@@ -128,9 +136,11 @@ class BaseMethod:
         step also clips and applies the averaged gradient."""
         self.model.train()
         batch = self._to_device(batch)
+        extras = self.train_loss_kwargs(self.it)  # before the increment
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.use_fp16):
-            losses = self.model.train_loss(batch, generator=self.generator)
+            losses = self.model.train_loss(batch, generator=self.generator,
+                                           **extras)
         losses = {k: v.float() for k, v in losses.items()}
         total = sum(self.loss_weights.get(k, 1.0) * v for k, v in losses.items())
         (total / self.grad_accum).backward()
@@ -141,7 +151,7 @@ class BaseMethod:
         losses["total_loss"] = total.detach()
         # the norm of the gradient the optimizer last applied, before clipping
         losses["grad_norm"] = self._grad_norm
-        return {k: v.detach() for k, v in losses.items()}
+        return {**{k: v.detach() for k, v in losses.items()}, **extras}
 
     # ---------------------------------------------------------------- train
     def fit(self, resume_from: str = "", san_check_val_step: int = 2) -> None:
@@ -233,12 +243,38 @@ class BaseMethod:
         self._log({"phase": "val", "step": self.it,
                    **{k: round(v, 6) for k, v in avgs.items()}})
         if san_check_step <= 0 and int(self.params.get("n_samples", 0)) > 0:
-            self._sample_video()
+            try:
+                self._sample_video()
+            except NotImplementedError:
+                pass
+            except Exception as e:  # a failed visualisation must not end training
+                print(f"[warn] _sample_video failed: {e}", flush=True)
         return avgs
 
+    # -------------------------------------------------------- media logging
     def _sample_video(self) -> None:
-        """Hook: save qualitative videos each val epoch. Not ported yet (it
-        waits for ``metrics/vis.py``): a no-op."""
+        """Hook: save qualitative videos each val epoch (reference
+        base_slots/method.py:133-162). Subclasses implement."""
+        raise NotImplementedError
+
+    def _vis_dir(self) -> str:
+        d = os.path.join(self.ckp_path, "vis")
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    def _sample_val_videos(self, n: int):
+        """``n`` whole videos of the val dataset, evenly spaced (reference
+        _get_sample_idx, base_slots/method.py:50-56)."""
+        dst = self.val_loader.dataset
+        base = dst.base if hasattr(dst, "base") else dst
+        if not hasattr(base, "get_video"):
+            raise NotImplementedError
+        n_videos = len(getattr(base, "files", []))
+        if n_videos == 0:
+            raise NotImplementedError
+        n = min(n, n_videos)
+        idxs = np.arange(0, n_videos, max(n_videos // n, 1))[:n]
+        return [base.get_video(int(i)) for i in idxs]
 
     # ------------------------------------------------------------ ckpt / log
     def save_ckp(self) -> None:

@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 on the card: each CUDA kernel against its plain version.
+"""Kernels K1 and K2 on the card: each CUDA kernel against its plain version;
+SlotFormer's image-loss branches and the video-prediction metrics on the card.
 
 Marked ``cuda`` and skipped without a card. Imports no JAX, so it also runs
 where JAX is not installed:
@@ -240,3 +241,94 @@ def test_build_picks_up_an_edited_header(cuda, tmp_path, monkeypatch):
     build.load(name)
     second = build._lib_path(name)
     assert second != first and second.is_file()
+
+
+# ---- SlotFormer's image-loss branches and the metrics, on the card
+# (no kernel of this repository runs in them: cuDNN and PyTorch on the card
+# against the CPU). Tolerances: losses 1e-5 relative and d(loss)/d(slots)
+# 1e-4 of its largest entry between the float32 branches (one decoder pass,
+# summed in other orders); bf16 against float32 at rtol 3e-2, the tolerance
+# of the CPU tests; pixel metrics 1e-4 relative, ARI/mIoU (float32 sums of
+# exact integer counts) 1e-5 absolute, the box matching equal.
+
+def _tiny_slotformer(device, **loss_dict):
+    from slotformer_tpu_torch.models.slotformer import SlotFormer
+
+    torch.manual_seed(0)
+    return SlotFormer(
+        resolution=(16, 16), slot_dict=dict(num_slots=4, slot_size=16),
+        dec_dict=dict(dec_channels=(16, 8, 8), dec_resolution=(4, 4), dec_ks=3,
+                      dec_norm=""),
+        rollout_dict=dict(num_slots=4, slot_size=16, history_len=3, t_pe="sin",
+                          d_model=16, num_layers=1, num_heads=2, ffn_dim=32,
+                          dropout=0.0),
+        loss_dict=dict(rollout_len=4, use_img_recon_loss=True, **loss_dict),
+    ).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vid_len", [False, True])
+def test_loss_branches_agree_on_the_card(cuda, vid_len):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    batch = {"slots": torch.randn(4, 7, 4, 16, generator=g).to(cuda),
+             "img": torch.randn(4, 7, 16, 16, 3, generator=g).to(cuda)}
+    if vid_len:
+        batch["vid_len"] = torch.tensor([5, 7, 6, 7], device=cuda)
+    results = {}
+    for name, ld in (("plain", dict(dec_chunk_frames=0)),
+                     ("chunked", dict(dec_chunk_frames=4)),
+                     ("custom", dict(dec_custom_bwd=True, dec_chunk_frames=0)),
+                     ("custom_chunked", dict(dec_custom_bwd=True, dec_chunk_frames=4)),
+                     ("bf16", dict(dec_recon_bf16=True, dec_chunk_frames=0))):
+        model = _tiny_slotformer(cuda, **ld)
+        losses = model.train_loss(batch, loss_decay_factor=0.5)
+        sum(losses.values()).backward()
+        results[name] = (losses, {n: p.grad for n, p in model.named_parameters()
+                                  if n.startswith("rollouter.") and p.grad is not None})
+    ref_l, ref_g = results["plain"]
+    for name, (losses, grads) in results.items():
+        rtol = 3e-2 if name == "bf16" else 2e-5
+        for k in ref_l:
+            torch.testing.assert_close(losses[k], ref_l[k], rtol=rtol, atol=0)
+        if name == "bf16":
+            continue
+        assert sorted(grads) == sorted(ref_g)
+        for n, want in ref_g.items():
+            assert (grads[n] - want).abs().max() <= 1e-4 * want.abs().max() + 1e-12, n
+
+
+@pytest.mark.cuda
+def test_pred_eval_step_card_matches_cpu(cuda):
+    import numpy as np
+
+    from slotformer_tpu_torch.metrics import (load_lpips, masks_to_boxes,
+                                              pred_eval_step)
+
+    torch.backends.cudnn.allow_tf32 = False
+    r = np.random.default_rng(0)
+    B, T, H, W, N = 3, 4, 32, 32, 5
+    gt = r.uniform(-1, 1, size=(B, T, H, W, 3)).astype(np.float32)
+    pred = np.clip(gt + r.normal(0, 0.2, size=gt.shape), -1, 1).astype(np.float32)
+    gt_mask = r.integers(0, N, size=(B, T, H, W)).astype(np.int32)
+    pred_mask = np.where(r.uniform(size=gt_mask.shape) < 0.8, gt_mask,
+                         r.integers(0, N, size=gt_mask.shape)).astype(np.int32)
+    gt_bbox = masks_to_boxes(gt_mask, N).numpy()[:, :, 1:]
+    kw = dict(gt=gt, gt_mask=gt_mask, gt_pres_mask=gt_bbox[..., 0] >= 0,
+              gt_bbox=gt_bbox, eval_traj=True, num_classes=N)
+    out = {}
+    for dev in ("cpu", cuda):
+        pm = torch.from_numpy(pred_mask).to(dev)
+        out[str(dev)] = pred_eval_step(
+            pred=torch.from_numpy(pred).to(dev), pred_mask=pm,
+            pred_bbox=masks_to_boxes(pm, N),
+            lpips_fn=load_lpips("", fallback="untrained", device=dev), **kw)
+    on_cpu, on_card = out["cpu"], out[str(cuda)]
+    for k in on_cpu:
+        if k in ("mse", "psnr", "ssim", "percept_dist"):
+            np.testing.assert_allclose(on_card[k], on_cpu[k], rtol=1e-4, err_msg=k)
+        elif k in ("ari", "fari", "miou"):
+            np.testing.assert_allclose(on_card[k], on_cpu[k], rtol=0, atol=1e-5,
+                                       err_msg=k)
+        else:
+            assert on_card[k] == on_cpu[k], k
