@@ -13,8 +13,9 @@ exits non-zero:
                (one ``nvcc`` per source, all started together); prints each
                kernel's registers and spills as ``ptxas`` reports them.
   3. kernel  - kernel K1 against its plain PyTorch version on the card at the
-               CLEVRER extraction shape, a ragged N, S=8 and the training
-               batch (B=64); a second call must give the same bits; times
+               CLEVRER extraction shape, a ragged N, S=8, the training
+               batch (B=64) and the STEVE extraction shape (B=8, N=4096,
+               D=192, S=6, H=384); a second call must give the same bits; times
                both (K1 on weights packed beforehand, as the model calls
                it, and with the packing inside every call), K1 also with k
                and v cold in the L2 cache, the host's time to enqueue a
@@ -73,6 +74,32 @@ exits non-zero:
                untrained; one ``pred_eval_step`` on the card against the
                same call on the CPU; rollout frames/s with and without the
                metrics.
+ 11. physion_tree - a mini Physion tree in a temporary directory: frame
+               folders of 150 128x128 frames rendered by the synthetic
+               renderer (6 + 2 training videos, 2 + 2 readout videos) and
+               split files, ``datasets.physion._SPLIT_DIR`` pointed at them.
+ 12. tokenize - a full-width ``dvae_physion_params`` dVAE (vocab 4096,
+               random weights from a seed) through ``cli.tokenize_images``:
+               every token file [150, 1024] int32 in range; the dVAE card
+               against CPU on 4 frames (logits, ids up to a tie); frames/s.
+ 13. steve_extract - a full-width ``steve_physion_params`` STEVE (the dVAE
+               above under ``dvae.*``) through ``cli.extract_slots`` on the
+               training and readout subsets: K1 launched once per frame
+               step per batch, the files and their ``{subset}_slots.pkl``
+               links; one 6-frame clip at B=2 card against CPU and against
+               K1's plain version on the card (slots and masks, per frame);
+               frames/s and K1's share of the device trace.
+ 14. steve_rollout - a full-width ``slotformer_physion_params``
+               STEVESlotFormer (STEVE's dVAE and token decoder grafted)
+               through ``cli.rollout_slots --task physion --subset readout``,
+               45 -> 150 frames; one video card against CPU.
+ 15. steve_decode - ``STEVESlotFormer.rollout(decode=True)`` for 2 frames of
+               2 videos: 1024 KV-cached token steps an image, then the dVAE;
+               ms per image and per token step, the device idle share; one
+               image card against CPU (teacher-forced logits, generated ids
+               up to a tie, hard and soft images).
+
+Every phase's seconds follow it on a line of their own.
 
 Then a line of constants for comparison (each kernel's time at the same case
 before it was redesigned for the H100, measured by an earlier version of this
@@ -84,7 +111,8 @@ its launches through its entry point; every number measured in this run but
 ``{"ok": true, "device": {...}}``. K1's ``launches_by_path`` also counts the
 encode of the slots file that SlotFormer trains on and ``test_vp`` evaluates
 (SlotFormer itself launches no kernel of this repository: it reads K1's
-slots). Without a CUDA device it exits 1 and prints no result.
+slots) and STEVE's extraction; its ``steve_case`` holds K1 at the STEVE
+shape. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -129,6 +157,27 @@ SF_BF16_IMG_RTOL, SF_BF16_SLOT_RTOL = 3e-2, 2e-5
 # from exact integer counts whose float32 sums may round in another order;
 # the box matching is discrete.
 VP_PIXEL_RTOL, VP_CLUSTER_ATOL = 1e-4, 1e-5
+# STEVE on Physion, full width with random weights: K1 at the extraction
+# shape (B, N, D, S, H) = (8, 64x64 features of 128x128 frames, 192, 6, 384)
+STEVE_K1_SHAPE = (8, 4096, 192, 6, 384)
+# STEVE extraction, card against CPU on one 6-frame clip: the slots pass 6
+# recurrent frame steps (an LSTM-wrapped 2-layer predictor, then K1) at
+# D=192 and O(1) magnitudes; the masks are softmaxes in [0, 1].
+STEVE_SLOTS_ATOL, STEVE_MASKS_ATOL = 1e-3, 1e-4
+# The dVAE's logits card against CPU, relative to the largest |logit|: 9
+# convolutions in float32; an id may differ only where its top two logits
+# lie closer than DVAE_TIE.
+DVAE_LOGITS_RTOL, DVAE_TIE = 1e-4, 1e-4
+# The STEVESlotFormer rollout card against CPU: 8 transformer layers over 35
+# autoregressive steps, float32 on both.
+STEVE_ROLLOUT_ATOL = 1e-4
+# Token decoding, card against CPU: teacher-forced logits relative to the
+# largest |logit|; generated ids equal up to a tie (top-2 gap under
+# DECODE_TIE at the first mismatch); the images within 1e-4 given the same
+# ids (hard) or the same gumbel uniforms (soft).
+DECODE_LOGITS_RTOL, DECODE_TIE, DECODE_IMG_ATOL = 1e-4, 1e-4, 1e-4
+PHYSION = dict(video_len=150, train=6, val=2, readout_train=2, readout_val=2,
+               extract_batch=8, chunk_len=50)
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "slotformer_tpu_torch", "configs")
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
@@ -253,7 +302,8 @@ def phase_kernel():
     for tag, (B, N, D, S, H) in (("clevrer", (8, 4096, 128, 7, 256)),
                                  ("ragged_n", (8, 1000, 128, 5, 256)),
                                  ("eight_slots", (4, 4096, 128, 8, 256)),
-                                 ("train_batch", (64, 4096, 128, 7, 256))):
+                                 ("train_batch", (64, 4096, 128, 7, 256)),
+                                 ("steve", STEVE_K1_SHAPE)):
         k, v, slots, wp = k1_inputs(B, N, D, S, H, seed=len(results))
         args = (k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
         got = k1.fused_slot_attention(*args)
@@ -1089,6 +1139,383 @@ def phase_test_vp(slots_path, weight, workdir):
         raise AssertionError("test_vp check failed")
 
 
+# ------------------------------------------------------- the STEVE family
+
+
+def physion_params(workdir, name, **over):
+    """The shipped Physion config ``name`` with its data under ``workdir``,
+    written as ``workdir/<name>.py`` (the dVAE's file name names its token
+    tree)."""
+    from slotformer_tpu_torch.runtime import load_params
+
+    path = os.path.join(workdir, f"{name}.py")
+    lines = "".join(f"    {k} = {v!r}\n" for k, v in over.items())
+    with open(path, "w") as f:
+        f.write("from slotformer_tpu_torch.runtime import load_params\n\n"
+                "Shipped = type(load_params("
+                f"{os.path.join(CONFIGS, name + '.py')!r}))\n\n\n"
+                "class SlotFormerParams(Shipped):\n"
+                f"    data_root = {os.path.join(workdir, 'data', 'Physion')!r}\n"
+                f"    video_len = {PHYSION['video_len']}\n"
+                "    num_workers = 4\n" + lines)
+    return path, load_params(path)
+
+
+def phase_physion_tree(workdir):
+    """A mini Physion tree of frame folders rendered by the synthetic
+    renderer, with split files; ``physion._SPLIT_DIR`` points at them."""
+    import numpy as np
+    from PIL import Image
+
+    import cv2  # noqa: F401  (the frame readers' other library)
+    from slotformer_tpu_torch.datasets import physion
+    from slotformer_tpu_torch.datasets.synthetic import _render_video
+
+    t0 = time.perf_counter()
+    T, tasks = PHYSION["video_len"], ("Collide", "Roll", "Drop", "Support")
+    splits_dir = os.path.join(workdir, "splits")
+    os.makedirs(splits_dir)
+    n_frames, seed = 0, 0
+    for subset, split in (("training", "train"), ("training", "val"),
+                          ("readout", "train"), ("readout", "val")):
+        n = PHYSION[split if subset == "training" else f"readout_{split}"]
+        listing = {}
+        for i in range(n):
+            task = tasks[i % len(tasks)]
+            rel = f"PhysionTrainMP4s/{task}_{subset}_MP4s/{subset}_{split}_{i:02d}"
+            folder = os.path.join(workdir, "data", "Physion", rel)
+            os.makedirs(folder)
+            video, _ = _render_video(seed, T, 128, 4)
+            seed += 1
+            for t, frame in enumerate(video):
+                Image.fromarray(((frame + 1) * 127.5).round().astype(np.uint8)).save(
+                    os.path.join(folder, f"{t:06d}.jpg"), quality=95)
+            listing.setdefault(task, []).append(rel + ".mp4")
+            n_frames += T
+        with open(os.path.join(splits_dir, f"{subset}_{split}.json"), "w") as f:
+            json.dump(listing, f)
+    physion._SPLIT_DIR = splits_dir
+    emit(phase="physion_tree", videos=n_frames // T, frames=n_frames,
+         resolution=[128, 128], seconds=time.perf_counter() - t0, ok=True)
+
+
+def _top2_gap(logits):
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def phase_tokenize(workdir):
+    """The full-width dVAE (vocab 4096) through ``cli.tokenize_images``; its
+    checkpoint is returned for STEVE."""
+    import numpy as np
+    import torch
+
+    from slotformer_tpu_torch.cli import tokenize_images
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.datasets.physion import token_path
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import save_checkpoint
+
+    cfg, params = physion_params(workdir, "dvae_physion_params")
+    torch.manual_seed(5)
+    dvae = build_model(params, device=DEVICE)
+    ckp = os.path.join(workdir, "ckpts", "dvae_physion_params", "model.pth")
+    save_checkpoint(ckp, {k: v.cpu() for k, v in dvae.state_dict().items()})
+    with torch.inference_mode():  # warm-up: the convolutions' first calls
+        dvae.tokenize(torch.zeros(64, *params.resolution, 3, device=DEVICE))
+    stats, dt = wall_s(lambda: tokenize_images.main(
+        ["--params", cfg, "--weight", ckp, "--batch_size", "64",
+         "--device", DEVICE]))
+    frames = sum(s["frames"] for s in stats.values())
+    train_set, val_set = build_dataset(params)
+    files = train_set.files + val_set.files
+    V, T = params.vocab_size, PHYSION["video_len"]
+    hw = (params.resolution[0] // 4) * (params.resolution[1] // 4)
+    tok_ok = len(files) == PHYSION["train"] + PHYSION["val"]
+    for folder in files:
+        tok = np.load(token_path(folder, "dvae_physion_params"))
+        tok_ok &= bool(tok.shape == (T, hw) and tok.dtype == np.int32
+                       and 0 <= tok.min() and tok.max() < V)
+
+    # the model alone on a batch of 64 frames, and card against CPU on 4
+    val_set.load_video = True
+    video = torch.from_numpy(val_set[0]["video"])
+    val_set.load_video = False
+    batch = video[:64].to(DEVICE)
+    with torch.inference_mode():
+        model_ms = cuda_ms(lambda: dvae.tokenize(batch, one_hot=False), iters=10)
+        cpu = build_model(params, device="cpu")
+        cpu.load_state_dict(dvae.state_dict())
+        want = cpu.encode_logits(video[:4])
+        got = dvae.encode_logits(video[:4].to(DEVICE)).cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    differ = got.argmax(-1) != want.argmax(-1)
+    gap = _top2_gap(want)
+    ids_ok = bool((gap[differ] <= DVAE_TIE).all())
+    ok = tok_ok and rel <= DVAE_LOGITS_RTOL and ids_ok and stats["val"]["written"] > 0
+    emit(phase="tokenize", config="dvae_physion_params", vocab=V,
+         videos=len(files), frames=frames, seconds=dt, frames_per_s=frames / dt,
+         model_only_frames_per_s=64 / (model_ms / 1e3), token_files_ok=tok_ok,
+         card_vs_cpu=dict(frames=4, logits_rel_err=rel, tol=DVAE_LOGITS_RTOL,
+                          ids_differ=int(differ.sum()),
+                          min_top2_gap=gap.min().item(), tie=DVAE_TIE),
+         ok=ok)
+    if not ok:
+        raise AssertionError("tokenize check failed")
+    return ckp
+
+
+def phase_steve_extract(workdir, dvae_ckp, k1_ms):
+    """A full-width STEVE (the dVAE above under ``dvae.*``) through
+    ``cli.extract_slots`` on the training and readout subsets; returns its
+    checkpoint and the K1 launches."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from slotformer_tpu_torch.cli import extract_slots
+    from slotformer_tpu_torch.cli.extract_slots import extract_video_slots
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.kernels import slot_attention as k1
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.models import slot_attention as sa_module
+    from slotformer_tpu_torch.runtime import load_checkpoint, load_obj, save_checkpoint
+
+    cfg, params = physion_params(workdir, "steve_physion_params")
+    torch.manual_seed(6)
+    steve = build_model(params, device=DEVICE)
+    steve.dvae.load_state_dict(load_checkpoint(dvae_ckp)["state_dict"])
+    ckp_dir = os.path.join(workdir, "ckpts", "steve_physion_params")
+    ckp = os.path.join(ckp_dir, "model.pth")
+    save_checkpoint(ckp, {k: v.cpu() for k, v in steve.state_dict().items()})
+    bs, chunk, T = PHYSION["extract_batch"], PHYSION["chunk_len"], PHYSION["video_len"]
+    S, D = steve.num_slots, steve.slot_size
+    data = os.path.join(workdir, "data", "Physion")
+    runs = {}
+    for subset in ("training", "readout"):
+        k1.LAUNCHES = 0
+        path, dt = wall_s(lambda: extract_slots.main(
+            ["--params", cfg, "--weight", ckp, "--subset", subset,
+             "--save_path", os.path.join(data, f"{subset}_slots.pkl"),
+             "--batch_size", str(bs), "--chunk_len", str(chunk),
+             "--device", DEVICE]))
+        slots = load_obj(path)
+        link = os.path.join(ckp_dir, f"{subset}_slots.pkl")
+        n_videos = {k: len(v) for k, v in slots.items()}
+        prefix = "" if subset == "training" else "readout_"
+        want_videos = {s: PHYSION[prefix + s] for s in ("train", "val")}
+        batches = sum(-(-n // bs) for n in n_videos.values())
+        runs[subset] = dict(
+            seconds=dt, frames_per_s=sum(n_videos.values()) * T / dt,
+            k1_launches=k1.LAUNCHES, frame_steps=batches * T,
+            videos=n_videos, link=os.path.realpath(link) == os.path.realpath(path),
+            shapes_ok=all(s.shape == (T, S, D) and s.dtype == np.float32
+                          and np.isfinite(s).all()
+                          for v in slots.values() for s in v.values()),
+            ok=n_videos == want_videos)
+    launches = sum(r["k1_launches"] for r in runs.values())
+
+    # the model alone, warm, on the training split of the training subset;
+    # K1's share of it from the device trace
+    train_set, _ = build_dataset(params)
+    run = lambda: extract_video_slots(steve, train_set, bs, chunk)  # noqa: E731
+    _, dt = wall_s(run)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1_dev_ms = sum(e.self_device_time_total for e in kernels
+                    if "fused_slot_attention_" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+
+    # card against CPU (and against K1's plain version on the card) on one
+    # 6-frame clip at B=2
+    train_set.load_video = True
+    clip = torch.from_numpy(np.stack([train_set[i]["video"][:6] for i in (0, 1)]))
+    train_set.load_video = False
+    cpu = build_model(params, device="cpu")
+    cpu.load_state_dict(steve.state_dict())
+    with torch.inference_mode():
+        gs, gm, _, _ = steve.encode(clip.to(DEVICE))
+        cs, cm, _, _ = cpu.encode(clip)
+        with mock.patch.object(sa_module, "fused_slot_attention",
+                               k1.fused_slot_attention_plain):
+            ps, pm, _, _ = steve.encode(clip.to(DEVICE))
+    per_frame = lambda a, b: [(a[:, t].cpu() - b[:, t].cpu()).abs().max().item()  # noqa: E731
+                              for t in range(a.shape[1])]
+    errs = dict(slots_vs_cpu=per_frame(gs, cs), masks_vs_cpu=per_frame(gm, cm),
+                slots_vs_plain_k1=per_frame(gs, ps),
+                masks_vs_plain_k1=per_frame(gm, pm))
+    agree = (max(errs["slots_vs_cpu"] + errs["slots_vs_plain_k1"]) <= STEVE_SLOTS_ATOL
+             and max(errs["masks_vs_cpu"] + errs["masks_vs_plain_k1"]) <= STEVE_MASKS_ATOL)
+    masks_ok = torch.allclose(gm.sum(2), torch.ones_like(gm.sum(2)), atol=1e-5)
+    ok = (all(r["ok"] and r["link"] and r["shapes_ok"]
+              and r["k1_launches"] == r["frame_steps"] for r in runs.values())
+          and agree and masks_ok)
+    emit(phase="steve_extract", config="steve_physion_params",
+         batch_size=bs, chunk_len=chunk, frames=T, subsets=runs,
+         k1_launches=launches, k1_ms_each_b8=k1_ms,
+         training_run=dict(seconds=dt,
+                           frames_per_s=len(train_set.files) * T / dt,
+                           device_busy_ms=busy_ms,
+                           k1_device_ms=k1_dev_ms,
+                           k1_share_of_run=k1_dev_ms / (1e3 * dt),
+                           device_idle_share=1 - busy_ms / (1e3 * dt),
+                           top_kernels_name_count_ms=[
+                               (e.key[:80], e.count, e.self_device_time_total / 1e3)
+                               for e in top]),
+         card_vs_cpu=dict(clip=[2, 6], errors_per_frame=errs,
+                          tol_slots=STEVE_SLOTS_ATOL, tol_masks=STEVE_MASKS_ATOL,
+                          ok=agree),
+         masks_sum_to_1_over_slots=masks_ok, ok=ok)
+    if not ok:
+        raise AssertionError("STEVE extraction check failed")
+    return ckp, launches
+
+
+def phase_steve_rollout(workdir, steve_ckp):
+    """A full-width STEVESlotFormer (STEVE's dVAE and token decoder grafted)
+    through ``cli.rollout_slots --task physion --subset readout``; returns
+    the model."""
+    import numpy as np
+    import torch
+
+    from slotformer_tpu_torch.cli import rollout_slots
+    from slotformer_tpu_torch.cli.rollout_slots import interleaved_rollout
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import (graft, load_checkpoint, load_obj,
+                                              save_checkpoint)
+
+    data = os.path.join(workdir, "data", "Physion")
+    cfg, params = physion_params(
+        workdir, "slotformer_physion_params",
+        slots_root=os.path.join(data, "training_slots.pkl"))
+    torch.manual_seed(7)
+    model = build_model(params, device=DEVICE)
+    model.load_state_dict(graft(model.state_dict(), load_checkpoint(steve_ckp),
+                                {"dvae": "dvae", "decoder": "trans_decoder"}))
+    ckp_dir = os.path.join(workdir, "ckpts", "slotformer_physion_params")
+    ckp = os.path.join(ckp_dir, "model.pth")
+    save_checkpoint(ckp, {k: v.cpu() for k, v in model.state_dict().items()})
+    save = os.path.join(workdir, "out", "readout_rollout_slots.pkl")
+    _, dt = wall_s(lambda: rollout_slots.main(
+        ["--task", "physion", "--subset", "readout", "--params", cfg,
+         "--weight", ckp, "--save_path", save, "--batch_size", "8",
+         "--device", DEVICE]))
+    rolled, given = load_obj(save), load_obj(os.path.join(data, "readout_slots.pkl"))
+    obs, T = 45, PHYSION["video_len"]
+    args = (obs, T, params.input_frames, params.frame_offset)
+    # the model alone, warm, on the same videos
+    _, warm_dt = wall_s(lambda: [interleaved_rollout(model, v, *args, batch_size=8)
+                                 for v in given.values()])
+    shapes_ok = set(rolled) == {"train", "val"} and all(
+        r.shape == (T, model.num_slots, model.slot_size) and np.isfinite(r).all()
+        and np.array_equal(r[:obs], given[split][n][:obs])
+        for split, v in rolled.items() for n, r in v.items())
+    n_videos = sum(len(v) for v in rolled.values())
+    link_ok = os.path.islink(os.path.join(ckp_dir, "readout_slots.pkl"))
+
+    name = sorted(given["val"])[0]
+    one = {name: given["val"][name]}
+    cpu = build_model(params, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    err = float(np.abs(interleaved_rollout(model, one, *args)[name]
+                       - interleaved_rollout(cpu, one, *args)[name]).max())
+    ok = shapes_ok and link_ok and err <= STEVE_ROLLOUT_ATOL
+    emit(phase="steve_rollout", config="slotformer_physion_params",
+         videos=n_videos, observed=obs, target=T,
+         frame_offset=params.frame_offset, history=params.input_frames,
+         seconds=dt, rolled_out_frames_per_s=n_videos * (T - obs) / dt,
+         model_only=dict(seconds=warm_dt,
+                         rolled_out_frames_per_s=n_videos * (T - obs) / warm_dt),
+         shapes_ok=shapes_ok, link_ok=link_ok, max_abs_err_vs_cpu=err,
+         tol=STEVE_ROLLOUT_ATOL, ok=ok)
+    if not ok:
+        raise AssertionError("STEVESlotFormer rollout check failed")
+    return model, cpu, given
+
+
+def phase_steve_decode(model, cpu, given):
+    """``STEVESlotFormer.rollout(decode=True)``: 1024 generated tokens per
+    image, then the dVAE; one image card against CPU."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from slotformer_tpu_torch.models.dvae import make_one_hot
+
+    names = sorted(given["train"])[:2]
+    past = torch.from_numpy(np.stack([given["train"][n][:45]
+                                      for n in names])).to(DEVICE)
+    history, pred_len = model.history_len, 2
+    run = lambda: model.rollout(past[:, -history:], pred_len, decode=True,  # noqa: E731
+                                with_gt=False)
+    # token steps traced: a whole decode is ~10^5 launches
+    window = min(128, model.num_patches)
+    with torch.inference_mode():
+        run()  # warm-up
+        out, dt = wall_s(run)
+        flat = out["slots"].reshape(-1, *out["slots"].shape[2:])
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _, prof_dt = wall_s(lambda: model.decoder.generate(flat, window))
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    images = len(names) * pred_len
+    recon = out["recon_combined"]
+    shapes_ok = (tuple(recon.shape) == (len(names), pred_len, *model.resolution, 3)
+                 and bool(torch.isfinite(recon).all()))
+
+    # one image, card against CPU
+    slots = out["slots"][:1, 0]
+    steps = model.num_patches
+    with torch.inference_mode():
+        g_ids, g_logits = model.decoder.generate(slots, steps)
+        c_ids, c_logits = cpu.decoder.generate(slots.cpu(), steps)
+        tf_card = model.decoder(slots, g_ids[:, :-1])
+        tf_cpu = cpu.decoder(slots.cpu(), g_ids[:, :-1].cpu())
+        tf_rel = ((tf_card.cpu() - tf_cpu).abs().max() / tf_cpu.abs().max()).item()
+        differ = (g_ids.cpu() != c_ids)[0].nonzero()
+        first = int(differ[0]) if len(differ) else None
+        gap_at_first = (None if first is None
+                        else _top2_gap(c_logits[0, first]).item())
+        ids_ok = first is None or gap_at_first <= DECODE_TIE
+        one_hot = make_one_hot(g_logits.reshape(1, model.h, model.w, -1))
+        hard_err = (model.dvae.detokenize(one_hot).cpu()
+                    - cpu.dvae.detokenize(one_hot.cpu())).abs().max().item()
+        u = torch.rand(1, model.h, model.w, model.vocab_size,
+                       generator=torch.Generator().manual_seed(0))
+        soft_card, _ = model.decode(slots, uniform=u.to(DEVICE))
+        soft_cpu, _ = cpu.decode(slots.cpu(), uniform=u)
+        soft_err = (soft_card.cpu() - soft_cpu).abs().max().item()
+    ok = (shapes_ok and tf_rel <= DECODE_LOGITS_RTOL and ids_ok
+          and hard_err <= DECODE_IMG_ATOL and soft_err <= DECODE_IMG_ATOL)
+    emit(phase="steve_decode", config="slotformer_physion_params",
+         images=images, tokens_per_image=steps, seconds=dt,
+         ms_per_image=1e3 * dt / images, ms_per_token_step=1e3 * dt / steps,
+         profiled=dict(token_steps=window, images=images, seconds=prof_dt,
+                       device_busy_ms=busy_ms,
+                       device_idle_share=1 - busy_ms / (1e3 * prof_dt),
+                       kernel_launches_per_step=sum(e.count for e in kernels)
+                       / window),
+         shapes_ok=shapes_ok,
+         card_vs_cpu=dict(teacher_forced_logits_rel_err=tf_rel,
+                          tol=DECODE_LOGITS_RTOL,
+                          ids_equal=first is None, first_mismatch=first,
+                          top2_gap_at_first_mismatch=gap_at_first,
+                          tie=DECODE_TIE, hard_img_err_same_ids=hard_err,
+                          soft_img_err_same_uniforms=soft_err,
+                          tol_img=DECODE_IMG_ATOL),
+         ok=ok)
+    if not ok:
+        raise AssertionError("STEVESlotFormer decode check failed")
+
+
 def main() -> int:
     import torch
 
@@ -1118,15 +1545,29 @@ def main() -> int:
     emit(phase="build", sources=list(build.KERNEL_SOURCES),
          seconds=time.perf_counter() - t0, ptxas=ptxas)
 
-    k1_results = phase_kernel()
-    k2_results, k2_launches = phase_kernel_update()
-    slots, extract_launches = phase_extract(k1_results["clevrer"]["ms"])
-    train_launches = phase_train()
-    phase_rollout(slots)
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit(phase_seconds=fn.__name__[len("phase_"):],
+             seconds=time.perf_counter() - t0)
+        return out
+
+    k1_results = timed(phase_kernel)
+    k2_results, k2_launches = timed(phase_kernel_update)
+    slots, extract_launches = timed(phase_extract, k1_results["clevrer"]["ms"])
+    train_launches = timed(phase_train)
+    timed(phase_rollout, slots)
     with tempfile.TemporaryDirectory() as workdir:
-        slots_path, savi_ckp, sf_extract_launches = phase_slots_file(workdir)
-        sf_weight = phase_train_slotformer(slots_path, savi_ckp, workdir)
-        phase_test_vp(slots_path, sf_weight, workdir)
+        slots_path, savi_ckp, sf_extract_launches = timed(phase_slots_file, workdir)
+        sf_weight = timed(phase_train_slotformer, slots_path, savi_ckp, workdir)
+        timed(phase_test_vp, slots_path, sf_weight, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        timed(phase_physion_tree, workdir)
+        dvae_ckp = timed(phase_tokenize, workdir)
+        steve_ckp, steve_launches = timed(
+            phase_steve_extract, workdir, dvae_ckp, k1_results["steve"]["ms"])
+        sf_models = timed(phase_steve_rollout, workdir, steve_ckp)
+        timed(phase_steve_decode, *sf_models)
 
     # not measured here: what the earlier kernels took at the cases of the
     # kernels line (K1 with its weights packed inside every call, as
@@ -1137,6 +1578,7 @@ def main() -> int:
                           slot_attention_update=0.0911))
     print(smi, flush=True)
     k1, k2 = k1_results["train_batch"], k2_results["clevrer"]
+    k1_steve = k1_results["steve"]
     emit(kernels=[
         dict(name="fused_slot_attention", route="cuda",
              source="slotformer_tpu_torch/kernels/csrc/slot_attention.cu",
@@ -1144,10 +1586,13 @@ def main() -> int:
              case="train_batch", launches=train_launches,
              launches_by_path=dict(train=train_launches,
                                    extract=extract_launches,
-                                   slotformer_slots_file=sf_extract_launches),
+                                   slotformer_slots_file=sf_extract_launches,
+                                   steve_extract=steve_launches),
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
+             bound_by=k1["bound_by"], library_ms=None,
+             steve_case=dict(shape=dict(zip("BNDSH", STEVE_K1_SHAPE)),
+                             **k1_steve)),
         dict(name="slot_attention_update", route="cuda",
              source="slotformer_tpu_torch/kernels/csrc/slot_attention_update.cu",
              replaces="slotformer_tpu/ops/slot_attention_kernel.py:87",

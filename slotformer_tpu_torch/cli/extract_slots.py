@@ -1,8 +1,12 @@
-"""Offline slot extraction: a frozen StoSAVi encoder over whole videos.
+"""Offline slot extraction: a frozen StoSAVi or STEVE encoder over whole
+videos.
 
 The port of ``slotformer_tpu/cli/extract_slots.py``. Every video of each
 split is encoded to slots and ONE pickle ``{split: {video_basename: float32
-[T, N, C]}}`` is written and symlinked next to the weight file.
+[T, N, C]}}`` is written and symlinked next to the weight file. For Physion,
+``--subset`` picks the dataset subset (training | readout | test), the
+default save path names it, and the link is ``{subset}_slots.pkl``, the
+name ``cli/rollout_slots.py --task physion`` looks for.
 
 Videos are batched (``--batch_size``) and encoded in chunks of ``--chunk_len``
 frames with slot carry-over; a short tail chunk is padded to ``chunk_len``
@@ -11,7 +15,8 @@ chunk has the same shape.
 
 Usage:
     python -m slotformer_tpu_torch.cli.extract_slots --params <cfg.py> \
-        --weight <ckpt.pth> [--save_path slots.pkl] [--chunk_len 24]
+        --weight <ckpt.pth> [--save_path slots.pkl] [--chunk_len 24] \
+        [--subset training]
 """
 
 from __future__ import annotations
@@ -27,8 +32,11 @@ import torch
 def extract_video_slots(model, dataset, batch_size: int, chunk_len: int,
                         seed: int = 0) -> Dict[str, np.ndarray]:
     """Encode every video of ``dataset`` (``files`` + ``get_video``) with
-    ``model`` on its device; kernel noise comes from a generator seeded with
-    ``seed``. Returns {video_basename: [T, N, C] float32}."""
+    ``model`` (StoSAVi or STEVE) on its device; StoSAVi's kernel noise comes
+    from a generator seeded with ``seed``. Returns {video_basename: [T, N, C]
+    float32}."""
+    from ..models import STEVE
+
     device = model.init_latents.device
     gen = torch.Generator(device=device).manual_seed(seed)
     dataset.load_video = True
@@ -51,7 +59,10 @@ def extract_video_slots(model, dataset, batch_size: int, chunk_len: int,
                     chunk = torch.cat(
                         [chunk, chunk[:, -1:].expand(-1, pad, -1, -1, -1)], 1)
                 prev = (None, None) if carry is None else carry
-                _, slots, _, carry = model.encode(chunk, *prev, generator=gen)
+                if isinstance(model, STEVE):
+                    slots, _, _, carry = model.encode(chunk, *prev)
+                else:
+                    _, slots, _, carry = model.encode(chunk, *prev, generator=gen)
                 all_slots.append(slots[:, :slots.shape[1] - pad])
             slots = torch.cat(all_slots, 1).cpu().numpy()  # [B, T, N, C]
             for k, j in enumerate(idxs):
@@ -63,7 +74,7 @@ def extract_video_slots(model, dataset, batch_size: int, chunk_len: int,
     return out
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> str:
     parser = argparse.ArgumentParser(description="extract slots from videos")
     parser.add_argument("--params", required=True)
     parser.add_argument("--weight", required=True,
@@ -72,8 +83,10 @@ def main(argv=None) -> None:
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--chunk_len", type=int, default=24)
     parser.add_argument("--subset", default="",
-                        help="restrict extraction to one split "
-                             "(train|val, or test for clevrer)")
+                        help="physion: the dataset subset, training | "
+                             "readout | test (default training); otherwise "
+                             "one split to extract (train|val, or test for "
+                             "clevrer)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
@@ -85,21 +98,36 @@ def main(argv=None) -> None:
 
     params = load_params(args.params)
     params.load_mask = False
+    physion = params.dataset.startswith("physion")
+    subset = None
+    if physion:
+        subset = args.subset or "training"
+        if subset not in ("training", "readout", "test"):
+            raise ValueError(f"physion --subset must be training|readout|test, "
+                             f"got {subset!r}")
+        params.dataset = f"physion_{subset}"
     model = build_model(params, device=args.device)
     model.load_state_dict(load_checkpoint(args.weight)["state_dict"])
 
     save_path = args.save_path
     if not save_path:
         stem = os.path.splitext(os.path.basename(args.params))[0]
-        save_path = os.path.join("data", f"{stem.replace('_params', '')}_slots.pkl")
+        stem = stem.replace("_params", "") + (f"_{subset}" if physion else "")
+        save_path = os.path.join("data", f"{stem}_slots.pkl")
+    elif physion and subset not in save_path:
+        raise ValueError("name the physion subset in --save_path, to tell the "
+                         "slot files apart")
 
-    train_set, val_set = build_dataset(params)
-    splits = {"train": train_set, "val": val_set}
+    if subset == "test":  # the test subset has one split
+        splits = {"test": build_dataset(params)}
+    else:
+        train_set, val_set = build_dataset(params)
+        splits = {"train": train_set, "val": val_set}
     if params.dataset == "clevrer":
         from ..datasets.clevrer import build_clevrer_dataset
 
         splits["test"] = build_clevrer_dataset(params, test_set=True)
-    if args.subset:
+    if args.subset and not physion:
         splits = {args.subset: splits[args.subset]}
 
     out = {}
@@ -109,9 +137,10 @@ def main(argv=None) -> None:
                                          args.chunk_len, args.seed)
     dump_obj(out, save_path)
     print(f"[extract] saved -> {save_path}", flush=True)
-    link = os.path.join(os.path.dirname(os.path.abspath(args.weight)),
-                        os.path.basename(save_path))
+    link_name = f"{subset}_slots.pkl" if physion else os.path.basename(save_path)
+    link = os.path.join(os.path.dirname(os.path.abspath(args.weight)), link_name)
     symlink_force(save_path, link)
+    return save_path
 
 
 if __name__ == "__main__":

@@ -1,15 +1,26 @@
-"""Roll out slots with a trained SlotFormer (CLEVRER), the port of
+"""Roll out slots with a trained SlotFormer or STEVESlotFormer, the port of
 ``slotformer_tpu/cli/rollout_slots.py``.
 
 Every video's slots are extended from ``obs_frames`` to ``target_len``
-frames (CLEVRER: 128 -> 160) with frame-offset interleaving: for offset k,
-the phase sequences ``[off::k]`` are rolled out separately and then
-re-interleaved. Output pickle ``{split: {fn: [target_len, N, C]}}``,
-symlinked as ``rollout_slots.pkl`` next to the weight.
+frames with frame-offset interleaving: for offset k, the phase sequences
+``[off::k]`` are rolled out separately and then re-interleaved. Output
+pickle ``{split: {fn: [target_len, N, C]}}``, symlinked next to the weight.
+
+  * ``--task clevrer``: ``params.slots_root``, 128 -> 160 frames, every
+    split, link ``rollout_slots.pkl``;
+  * ``--task physion``: ``{subset}_slots.pkl`` beside ``params.slots_root``
+    (what ``cli/extract_slots.py`` links), 45 observed frames (1.5 s at 30
+    fps) -> ``params.video_len``, the readout subset's train/val or the test
+    subset's test, link ``{subset}_slots.pkl``;
+  * ``--task synthetic``: ``params.slots_root``, ``--obs_frames`` and
+    ``--target_len`` required, link ``rollout_slots.pkl``.
 
 Usage:
     python -m slotformer_tpu_torch.cli.rollout_slots --task clevrer \
         --params <cfg.py> --weight <ckpt.pth> --save_path rollout_slots.pkl
+    python -m slotformer_tpu_torch.cli.rollout_slots --task physion \
+        --subset readout --params <cfg.py> --weight <ckpt.pth> \
+        --save_path readout_rollout_slots.pkl
 """
 
 from __future__ import annotations
@@ -61,16 +72,21 @@ def interleaved_rollout(model, slots_dict: Dict[str, np.ndarray],
     return out
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> str:
     parser = argparse.ArgumentParser(description="rollout slots via SlotFormer")
-    parser.add_argument("--task", choices=["clevrer"], required=True)
+    parser.add_argument("--task", choices=["clevrer", "physion", "synthetic"],
+                        required=True)
     parser.add_argument("--params", required=True)
     parser.add_argument("--weight", required=True,
                         help="reference-format {'state_dict': ...} file")
     parser.add_argument("--save_path", required=True)
+    parser.add_argument("--subset", default="readout",
+                        help="physion only: readout | test")
     parser.add_argument("--batch_size", type=int, default=8)
-    parser.add_argument("--obs_frames", type=int, default=128)
-    parser.add_argument("--target_len", type=int, default=160)
+    parser.add_argument("--obs_frames", type=int, default=-1,
+                        help="default: 128 (clevrer), 45 (physion)")
+    parser.add_argument("--target_len", type=int, default=-1,
+                        help="default: 160 (clevrer), video_len (physion)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
@@ -83,21 +99,44 @@ def main(argv=None) -> None:
     model = build_model(params, device=args.device)
     model.load_state_dict(load_checkpoint(args.weight)["state_dict"])
 
-    all_slots = load_obj(params.slots_root)
+    obs_frames, target_len = args.obs_frames, args.target_len
+    slots_root, link_name = params.slots_root, "rollout_slots.pkl"
+    splits = ("val", "train", "test")
+    if args.task == "clevrer":
+        obs_frames = 128 if obs_frames < 0 else obs_frames
+        target_len = 160 if target_len < 0 else target_len
+    elif args.task == "physion":
+        if args.subset not in ("readout", "test"):
+            raise ValueError(f"physion --subset must be readout|test, got "
+                             f"{args.subset!r}")
+        if args.subset not in args.save_path:
+            raise ValueError("name the physion subset in --save_path, to tell "
+                             "the slot files apart")
+        obs_frames = 45 if obs_frames < 0 else obs_frames
+        target_len = params.get("video_len", 150) if target_len < 0 else target_len
+        slots_root = os.path.join(os.path.dirname(params.slots_root),
+                                  f"{args.subset}_slots.pkl")
+        splits = ("test",) if args.subset == "test" else ("train", "val")
+        # what the readout heads look for next to the SlotFormer weight
+        link_name = f"{args.subset}_slots.pkl"
+    elif obs_frames <= 0 or target_len <= 0:
+        raise ValueError("--task synthetic needs --obs_frames and --target_len")
+
+    all_slots = load_obj(slots_root)
     out = {}
-    for split in ("val", "train", "test"):
+    for split in splits:
         if split not in all_slots:
             continue
         print(f"[rollout] split={split} videos={len(all_slots[split])}",
               flush=True)
         out[split] = interleaved_rollout(
-            model, all_slots[split], args.obs_frames, args.target_len,
+            model, all_slots[split], obs_frames, target_len,
             params.input_frames, params.frame_offset, args.batch_size)
     dump_obj(out, args.save_path)
     print(f"[rollout] saved -> {args.save_path}", flush=True)
-    link = os.path.join(os.path.dirname(os.path.abspath(args.weight)),
-                        "rollout_slots.pkl")
+    link = os.path.join(os.path.dirname(os.path.abspath(args.weight)), link_name)
     symlink_force(args.save_path, link)
+    return args.save_path
 
 
 if __name__ == "__main__":

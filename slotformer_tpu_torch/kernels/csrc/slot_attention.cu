@@ -205,14 +205,30 @@ inline int slot_red_floats(int dsl, int hsl, int G) {
   return floats;
 }
 
+// Floats of a block's weight slices: the GRU's two [D, 3 * dsl], then w1
+// [D, hsl], w2 [H, dsl] and wq [D, dsl]. With `overlay` the last three are
+// loaded into the GRU's region once the GRU's products have read it, so the
+// region holds the larger of the two sets (kernels/slot_attention.py
+// slot_smem_floats mirrors this budget).
+inline size_t slot_weight_floats(int D, int H, int dsl, int hsl, bool overlay) {
+  const size_t gru = (size_t)6 * D * dsl;
+  const size_t rest = (size_t)D * hsl + (size_t)H * dsl + (size_t)D * dsl;
+  return overlay ? (gru > rest ? gru : rest) : gru + rest;
+}
+
 // Shared memory of one block of the slot-side kernel.
-inline size_t slot_smem_bytes(int D, int H, int cl, int G) {
+inline size_t slot_smem_bytes(int D, int H, int cl, int G, bool overlay) {
   const int dsl = D / cl, hsl = H / cl, R = S_PAD * G;
   const size_t floats = (size_t)3 * R * D + slot_hid_floats(dsl, H, G) +
                         slot_y_floats(dsl, hsl, G) + slot_red_floats(dsl, hsl, G) +
-                        (size_t)D * dsl + 2 * (size_t)D * 3 * dsl +
-                        (size_t)D * hsl + (size_t)H * dsl;
+                        slot_weight_floats(D, H, dsl, hsl, overlay);
   return floats * sizeof(float);
+}
+
+// Whether a block can hold every weight slice at once only with the
+// overlay (D=192, H=384: 264 KB resident, 172 KB overlaid, at most 227 KB).
+inline bool slot_overlay(int D, int H, int cl) {
+  return slot_smem_bytes(D, H, cl, 1, false) > MAX_SMEM_BYTES;
 }
 
 __global__ void __launch_bounds__(THREADS, 2) fused_slot_attention_sweep_kernel(
@@ -241,7 +257,8 @@ __global__ void __launch_bounds__(THREADS) fused_slot_attention_slot_kernel(
     const float* __restrict__ w2, const float* __restrict__ vecs,
     const float* __restrict__ b1, float* __restrict__ h_out,
     float* __restrict__ q_out, int B, int N, int D, int S, int H, int G,
-    int red_floats, float scale, float eps, int has_update, int want_q) {
+    int red_floats, float scale, float eps, int has_update, int want_q,
+    int overlay) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, b0 = blockIdx.y * G;
@@ -258,25 +275,31 @@ __global__ void __launch_bounds__(THREADS) fused_slot_attention_slot_kernel(
                                        // barrier after which hid is written
   float* ya = hid + slot_hid_floats(dsl, H, G);  // a product's output slice
   float* red = ya + slot_y_floats(dsl, hsl, G);  // [red_floats]
-  float* wq_s = red + red_floats;      // [D, dsl]
-  float* wgi_s = wq_s + D * dsl;       // [D, 3 * dsl]
+  float* wgi_s = red + red_floats;     // [D, 3 * dsl]
   float* wgh_s = wgi_s + D * 3 * dsl;  // [D, 3 * dsl]
-  float* w1_s = wgh_s + D * 3 * dsl;   // [D, hsl]
-  float* w2_s = w1_s + D * hsl;        // [H, dsl]
+  // [D, hsl], [H, dsl], [D, dsl]: after the GRU's slices, or over them
+  float* w1_s = overlay ? wgi_s : wgh_s + D * 3 * dsl;
+  float* w2_s = w1_s + D * hsl;
+  float* wq_s = w2_s + H * dsl;
+  // the weight slices of the MLP and of q, loaded at the start or, with the
+  // overlay, once the GRU's products have read their region
+  auto copy_rest = [&]() {
+    if (has_update) copy_weight_slice(w1_s, w1, D, H, h0, hsl);
+    cp_async_commit();
+    if (has_update) copy_weight_slice(w2_s, w2, H, D, d0, dsl);
+    cp_async_commit();
+    if (want_q) copy_weight_slice(wq_s, wq, D, D, d0, dsl);
+    cp_async_commit();
+  };
 
-  // every weight slice this launch uses, in flight at once: four groups in
-  // the order of their use (a group may be empty)
+  // the weight slices in flight: four groups in the order of their use (a
+  // group may be empty); the waits below count on that order
   if (has_update) {
     copy_weight_slice(wgi_s, gru_i, D, 3 * D, 3 * d0, 3 * dsl);
     copy_weight_slice(wgh_s, gru_h, D, 3 * D, 3 * d0, 3 * dsl);
   }
   cp_async_commit();
-  if (has_update) copy_weight_slice(w1_s, w1, D, H, h0, hsl);
-  cp_async_commit();
-  if (has_update) copy_weight_slice(w2_s, w2, H, D, d0, dsl);
-  cp_async_commit();
-  if (want_q) copy_weight_slice(wq_s, wq, D, D, d0, dsl);
-  cp_async_commit();
+  if (!overlay || !has_update) copy_rest();
 
   // rows of padded slots and of batch elements past B are zero
   for (int i = tid; i < R * D; i += THREADS) {
@@ -328,11 +351,16 @@ __global__ void __launch_bounds__(THREADS) fused_slot_attention_slot_kernel(
                 live ? (num + eps * sv) / (den + eps * (float)N) : 0.f);
     }
     cluster.sync();
-    // GRU cell
-    cp_async_wait<3>();
+    // GRU cell: its group is the last one in flight with the overlay
+    if (overlay)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<3>();
     __syncthreads();
     matmul_slice(xs, D, wgi_s, 3 * dsl, ya, red, G);
     matmul_slice(hs, D, wgh_s, 3 * dsl, yb, red, G);
+    // the GRU's slices are read (matmul_slice ends with a block barrier)
+    if (overlay) copy_rest();
     for (int o = tid; o < R * dsl; o += THREADS) {
       const int row = o / dsl, dl = o % dsl, d = d0 + dl;
       const float* gi = ya + row * 3 * dsl + 3 * dl;
@@ -393,11 +421,11 @@ int cluster_size(int D, int H) {
 // Batch elements a cluster takes at once: as many as make the batch one wave
 // of `wave` clusters, as far as a block's threads and shared memory hold
 // their rows.
-int group_size(int B, int D, int H, int cl, int wave) {
+int group_size(int B, int D, int H, int cl, int wave, bool overlay) {
   int g = (B + wave - 1) / wave;
   if (g > MAX_GROUP) g = MAX_GROUP;
   while (g > 1 && (slot_red_floats(D / cl, H / cl, g) == 0 ||
-                   slot_smem_bytes(D, H, cl, g) > MAX_SMEM_BYTES))
+                   slot_smem_bytes(D, H, cl, g, overlay) > MAX_SMEM_BYTES))
     --g;
   return g;
 }
@@ -424,12 +452,12 @@ void slot_launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
 // cluster needs its blocks' SMs free within one GPC, so fewer than SMs /
 // cluster size), asked when the device or the kernel's footprint changes; one
 // block a SM is assumed where the question fails.
-int clusters_per_wave(int D, int H, int cl) {
+int clusters_per_wave(int D, int H, int cl, bool overlay) {
   static int known[64];
   static size_t known_for[64];  // the shared memory and cluster size asked about
   int device = 0;
   if (cudaGetDevice(&device) != cudaSuccess || device >= 64) return SM_COUNT / cl;
-  const size_t bytes = slot_smem_bytes(D, H, cl, 1);
+  const size_t bytes = slot_smem_bytes(D, H, cl, 1, overlay);
   if (known[device] == 0 || known_for[device] != bytes * MAX_CLUSTER + cl) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
@@ -457,7 +485,7 @@ cudaError_t launch_slot_kernel(cudaStream_t st, int cl, size_t bytes,
                                const float* b1, float* h_out, float* q_out,
                                int B, int N, int D, int S, int H, int G,
                                float scale, float eps, int has_update,
-                               int want_q) {
+                               int want_q, bool overlay) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   slot_launch_config(&cfg, &attr, st, cl, (B + G - 1) / G, bytes);
@@ -465,7 +493,7 @@ cudaError_t launch_slot_kernel(cudaStream_t st, int cl, size_t bytes,
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, fused_slot_attention_slot_kernel, h_in, records, n_chunks, wq,
       gru_i, gru_h, w1, w2, vecs, b1, h_out, q_out, B, N, D, S, H, G,
-      red_floats, scale, eps, has_update, want_q);
+      red_floats, scale, eps, has_update, want_q, (int)overlay);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -492,11 +520,15 @@ extern "C" int fused_slot_attention_f32(
   const int chunk_n = sweep_chunk_n(B, N);
   const int n_chunks = sweep_chunks(N, chunk_n);
   const int cl = cluster_size(D, H);
-  const int G = group_size(B, D, H, cl, clusters_per_wave(D, H, cl));
+  const bool overlay = slot_overlay(D, H, cl);
+  // weight slices a block cannot hold even overlaid
+  if (slot_smem_bytes(D, H, cl, 1, overlay) > MAX_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
+  const int G = group_size(B, D, H, cl, clusters_per_wave(D, H, cl, overlay), overlay);
   // a product whose column quads outnumber a block's threads (H / cl > 1024)
   if (slot_red_floats(D / cl, H / cl, G) == 0) return (int)cudaErrorInvalidValue;
   const size_t sweep_bytes = sweep_smem_bytes(D);
-  const size_t slot_bytes = slot_smem_bytes(D, H, cl, G);
+  const size_t slot_bytes = slot_smem_bytes(D, H, cl, G, overlay);
   cudaError_t err = allow_smem(fused_slot_attention_sweep_kernel, sweep_bytes,
                                sweep_allowed);
   if (err != cudaSuccess) return (int)err;
@@ -509,7 +541,7 @@ extern "C" int fused_slot_attention_f32(
   cudaStream_t st = (cudaStream_t)stream;
   err = launch_slot_kernel(st, cl, slot_bytes, slots, records, n_chunks, wq,
                            gru_i, gru_h, w1, w2, vecs, b1, state[0], q, B, N, D,
-                           S, H, G, scale, eps, 0, 1);
+                           S, H, G, scale, eps, 0, 1, overlay);
   if (err != cudaSuccess) return (int)err;
   const float* h_in = slots;
   for (int it = 0; it < num_iterations; ++it) {
@@ -521,7 +553,7 @@ extern "C" int fused_slot_attention_f32(
     float* h_out = last ? slots_out : state[it & 1];
     err = launch_slot_kernel(st, cl, slot_bytes, h_in, records, n_chunks, wq,
                              gru_i, gru_h, w1, w2, vecs, b1, h_out, q, B, N, D,
-                             S, H, G, scale, eps, 1, last ? 0 : 1);
+                             S, H, G, scale, eps, 1, last ? 0 : 1, overlay);
     if (err != cudaSuccess) return (int)err;
     h_in = h_out;
   }

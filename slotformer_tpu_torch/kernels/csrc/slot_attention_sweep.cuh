@@ -85,7 +85,11 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t (&allowed)[64]
   if (device < 64 && bytes <= allowed[device]) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
-  if (err == cudaSuccess && device < 64) allowed[device] = bytes;
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // refused, not failed: the next launch's check is clean
+    return err;
+  }
+  if (device < 64) allowed[device] = bytes;
   return err;
 }
 

@@ -14,7 +14,13 @@ from .nn import (
     build_grid,
     get_sin_pos_enc,
 )
-from .predictor import ResidualMLPPredictor, TransformerPredictor, build_predictor
+from .dvae import dVAE, gumbel_softmax, make_one_hot
+from .predictor import (
+    ResidualMLPPredictor,
+    RNNPredictorWrapper,
+    TransformerPredictor,
+    build_predictor,
+)
 from .savi import (
     FrameEncoder,
     KernelDistLayer,
@@ -22,8 +28,11 @@ from .savi import (
     SpatialBroadcastDecoder,
     StoSAVi,
 )
-from .slot_attention import SlotAttention
+from .slot_attention import SlotAttention, SlotAttentionWMask
 from .slotformer import SlotFormer, SlotRollouter
+from .steve import STEVE
+from .steve_slotformer import STEVESlotFormer
+from .steve_transformer import STEVETransformerDecoder
 
 
 def build_model(params, device="cuda") -> torch.nn.Module:
@@ -49,6 +58,29 @@ def build_model(params, device="cuda") -> torch.nn.Module:
             resolution=tuple(params.resolution),
             clip_len=params.get("n_sample_frames", 16),
             slot_dict=params.slot_dict,
+            dec_dict=params.dec_dict,
+            rollout_dict=params.rollout_dict,
+            loss_dict=params.loss_dict,
+        )
+    elif name == "dVAE":
+        model = dVAE(vocab_size=params.vocab_size, img_channels=3)
+    elif name == "STEVE":
+        model = STEVE(
+            resolution=tuple(params.resolution),
+            clip_len=params.input_frames,
+            slot_dict=params.slot_dict,
+            dvae_dict=params.dvae_dict,
+            enc_dict=params.enc_dict,
+            dec_dict=params.dec_dict,
+            pred_dict=params.pred_dict,
+            loss_dict=params.loss_dict,
+        )
+    elif name == "STEVESlotFormer":
+        model = STEVESlotFormer(
+            resolution=tuple(params.resolution),
+            clip_len=params.get("n_sample_frames", 16),
+            slot_dict=params.slot_dict,
+            dvae_dict=params.dvae_dict,
             dec_dict=params.dec_dict,
             rollout_dict=params.rollout_dict,
             loss_dict=params.loss_dict,

@@ -30,7 +30,7 @@ from torch import nn
 
 from .nn import ConvNormAct, DeconvNormAct, LayerNorm, SoftPositionEmbed
 from .predictor import build_predictor
-from .slot_attention import SlotAttention
+from .slot_attention import SlotAttention, SlotAttentionWMask
 
 
 def _adopt(parent: nn.Module, attr: str, part: nn.Module) -> None:
@@ -61,18 +61,27 @@ class KernelDistLayer(nn.Sequential):
 
 
 class SAViCell(nn.Module):
-    """One temporal step: predict -> sample kernels -> slot attention."""
+    """One temporal step: predict -> (sample) kernels -> slot attention.
+
+    ``use_kernel_head=False`` is STEVE's deterministic cell: no kernel head,
+    the predictor's output seeds slot attention itself; ``with_mask`` runs
+    ``SlotAttentionWMask`` and returns its masks."""
 
     def __init__(self, slot_size: int, slot_mlp_size: int, num_slots: int,
                  num_iterations: int, in_features: int, pred_dict: dict,
-                 kernel_mlp: bool, stochastic: bool, eps: float = 1e-6):
+                 kernel_mlp: bool, stochastic: bool, with_mask: bool = False,
+                 use_kernel_head: bool = True, eps: float = 1e-6):
         super().__init__()
         self.predictor = build_predictor(slot_size, slot_mlp_size, pred_dict)
-        self.kernel_dist_layer = KernelDistLayer(slot_size, kernel_mlp)
-        self.slot_attention = SlotAttention(
+        if use_kernel_head:
+            self.kernel_dist_layer = KernelDistLayer(slot_size, kernel_mlp)
+        sa_cls = SlotAttentionWMask if with_mask else SlotAttention
+        self.slot_attention = sa_cls(
             in_features, num_iterations, num_slots, slot_size, slot_mlp_size,
             eps)
         self.stochastic = stochastic
+        self.with_mask = with_mask
+        self.use_kernel_head = use_kernel_head
 
     def forward(self, carry, kv_t, is_first: bool,
                 eps_t: Optional[torch.Tensor] = None,
@@ -81,7 +90,7 @@ class SAViCell(nn.Module):
         """``carry`` = (slots [B, S, D], predictor state); ``kv_t`` = this
         frame's (k, v); ``sa_weights``: ``SlotAttention.packed_weights()``,
         packed in this step when not given. Returns (carry, (kernel_dist,
-        post_slots))."""
+        post_slots, masks [B, S, N] or None without ``with_mask``))."""
         slots, pred_state = carry
         if is_first:
             # a fresh video: SA is seeded from the init latents themselves
@@ -89,21 +98,25 @@ class SAViCell(nn.Module):
             latents = slots
         else:
             latents, pred_state = self.predictor(slots, pred_state)
-        kernel_dist = self.kernel_dist_layer(latents)
-        mu, log_var = kernel_dist.chunk(2, dim=-1)
-        if self.stochastic:
-            if eps_t is None:
-                if generator is None:
-                    raise ValueError("a stochastic encode needs sample_eps "
-                                     "or a torch.Generator")
-                eps_t = torch.randn(mu.shape, generator=generator,
-                                    device=mu.device, dtype=mu.dtype)
-            kernels = mu + eps_t * torch.exp(0.5 * log_var)
+        if not self.use_kernel_head:
+            kernel_dist = torch.cat([latents, torch.zeros_like(latents)], -1)
+            kernels = latents
         else:
-            kernels = mu
-        post_slots = self.slot_attention(None, kernels, kv=kv_t,
-                                         weights=sa_weights)
-        return (post_slots, pred_state), (kernel_dist, post_slots)
+            kernel_dist = self.kernel_dist_layer(latents)
+            mu, log_var = kernel_dist.chunk(2, dim=-1)
+            if not self.stochastic:
+                kernels = mu
+            else:
+                if eps_t is None:
+                    if generator is None:
+                        raise ValueError("a stochastic encode needs sample_eps "
+                                         "or a torch.Generator")
+                    eps_t = torch.randn(mu.shape, generator=generator,
+                                        device=mu.device, dtype=mu.dtype)
+                kernels = mu + eps_t * torch.exp(0.5 * log_var)
+        out = self.slot_attention(None, kernels, kv=kv_t, weights=sa_weights)
+        post_slots, masks = out if self.with_mask else (out, None)
+        return (post_slots, pred_state), (kernel_dist, post_slots, masks)
 
 
 class FrameEncoder(nn.Module):
@@ -183,6 +196,45 @@ class SpatialBroadcastDecoder(nn.Module):
         return recon_combined, recons, masks, slots
 
 
+def encode_frames(model: nn.Module, img: torch.Tensor,
+                  prev_slots: Optional[torch.Tensor] = None, pred_state=None,
+                  sample_eps: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+    """The temporal encode of StoSAVi and STEVE (``model`` has
+    ``frame_encoder``, ``cell``, ``init_latents`` and ``init_pred_state``):
+    [B, T, H, W, 3] -> (kernel_dist [B, T, S, 2D], slots [B, T, S, D], masks
+    [B, T, S, N] or None, encoder_out [B, T, N, C], carry)."""
+    B, T = img.shape[:2]
+    feats = model.frame_encoder(img.reshape(B * T, *img.shape[2:]))
+    # the SA input LN + k/v projections depend only on the features: one
+    # batched call over all B*T frames. [T, B, N, D] so each frame's k/v is
+    # contiguous, as the kernel takes them.
+    cell = model.cell
+    k_all, v_all = cell.slot_attention.project_kv(feats)
+    k_all = k_all.reshape(B, T, *k_all.shape[1:]).transpose(0, 1).contiguous()
+    v_all = v_all.reshape(B, T, *v_all.shape[1:]).transpose(0, 1).contiguous()
+    feats = feats.reshape(B, T, *feats.shape[1:])
+
+    first = prev_slots is None
+    slots = model.init_latents.expand(B, -1, -1) if first else prev_slots
+    carry = (slots, model.init_pred_state(B) if pred_state is None
+             else pred_state)
+    # the slot-attention weights do not change between the frame steps:
+    # packed into the kernel's buffers once per encode, never kept across
+    # calls (an optimizer step may lie between two of them)
+    sa_weights = cell.slot_attention.packed_weights()
+    steps = []
+    for t in range(T):
+        eps_t = None if sample_eps is None else sample_eps[:, t]
+        carry, out = cell(carry, (k_all[t], v_all[t]), first and t == 0,
+                          eps_t, generator, sa_weights)
+        steps.append(out)
+    kernel_dist, post_slots, masks = (
+        None if parts[0] is None else torch.stack(parts, 1)
+        for parts in zip(*steps))
+    return kernel_dist, post_slots, masks, feats, carry
+
+
 class StoSAVi(nn.Module):
     """Stochastic SAVi video slot encoder (constructor mirrors the
     reference's config-dict surface)."""
@@ -246,34 +298,9 @@ class StoSAVi(nn.Module):
         ``prev_slots``/``pred_state`` (the ``carry`` of the previous call)
         continue a chunked long video; then no frame is a first frame.
         """
-        B, T = img.shape[:2]
-        feats = self.frame_encoder(img.reshape(B * T, *img.shape[2:]))
-        # the SA input LN + k/v projections depend only on the features:
-        # one batched call over all B*T frames. [T, B, N, D] so each frame's
-        # k/v is contiguous, as the kernel takes them.
-        k_all, v_all = self.cell.slot_attention.project_kv(feats)
-        k_all = k_all.reshape(B, T, *k_all.shape[1:]).transpose(0, 1).contiguous()
-        v_all = v_all.reshape(B, T, *v_all.shape[1:]).transpose(0, 1).contiguous()
-        feats = feats.reshape(B, T, *feats.shape[1:])
-
-        first = prev_slots is None
-        slots = self.init_latents.expand(B, -1, -1) if first else prev_slots
-        carry = (slots, self.init_pred_state(B) if pred_state is None
-                 else pred_state)
-        # the slot-attention weights do not change between the frame steps:
-        # packed into the kernel's buffers once per encode, never kept
-        # across calls (an optimizer step may lie between two of them)
-        sa_weights = self.cell.slot_attention.packed_weights()
-        kernel_dist, post_slots = [], []
-        for t in range(T):
-            eps_t = None if sample_eps is None else sample_eps[:, t]
-            carry, (kd, ps) = self.cell(carry, (k_all[t], v_all[t]),
-                                        first and t == 0, eps_t, generator,
-                                        sa_weights)
-            kernel_dist.append(kd)
-            post_slots.append(ps)
-        return (torch.stack(kernel_dist, 1), torch.stack(post_slots, 1),
-                feats, carry)
+        kernel_dist, post_slots, _, feats, carry = encode_frames(
+            self, img, prev_slots, pred_state, sample_eps, generator)
+        return kernel_dist, post_slots, feats, carry
 
     def decode(self, slots: torch.Tensor):
         """[B', S, D] -> (recon_combined, recons, masks, slots), NHWC."""

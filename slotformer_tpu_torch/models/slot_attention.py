@@ -8,7 +8,9 @@ tensors; it computes the same function as the JAX module's jnp loop. The
 kernel takes the weights packed into its own buffers: ``packed_weights``
 builds them, and a caller that runs the module several times on unchanged
 parameters (``StoSAVi.encode`` over the frames of a clip) packs once and
-passes the result to every call.
+passes the result to every call. ``SlotAttentionWMask`` (STEVE) also
+returns the kernel's second output, the last round's attention, as the
+slots' segmentation masks.
 """
 
 from __future__ import annotations
@@ -77,11 +79,13 @@ class SlotAttention(nn.Module):
             return pack_weights(
                 {n: w.float() for n, w in self.fused_weights().items()})
 
-    def forward(self, inputs: Optional[torch.Tensor], slots: torch.Tensor,
-                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                weights: Optional[Dict[str, torch.Tensor]] = None
-                ) -> torch.Tensor:
-        """``inputs`` [B, N, C] or precomputed ``kv`` = (k, v) [B, N, D];
+    def _run(self, inputs: Optional[torch.Tensor], slots: torch.Tensor,
+             kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             weights: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(slots [B, S, D], last-round attention [B, N, S]) through K1.
+
+        ``inputs`` [B, N, C] or precomputed ``kv`` = (k, v) [B, N, D];
         ``slots`` [B, S, D] init; ``weights``: the result of
         ``packed_weights``, packed here when not given.
 
@@ -92,8 +96,27 @@ class SlotAttention(nn.Module):
         if weights is None:
             weights = self.packed_weights()
         with torch.autocast(k.device.type, enabled=False):
-            out, _ = fused_slot_attention(
+            out, attn = fused_slot_attention(
                 k.float(), v.float(), slots.float().contiguous(), weights,
                 self.num_iterations, self.num_slots, self.slot_size ** -0.5,
                 self.eps)
-        return out.to(k.dtype)
+        return out.to(k.dtype), attn
+
+    def forward(self, inputs: Optional[torch.Tensor], slots: torch.Tensor,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                weights: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """The refined slots [B, S, D]; arguments as ``_run``."""
+        return self._run(inputs, slots, kv, weights)[0]
+
+
+class SlotAttentionWMask(SlotAttention):
+    """Also returns the last round's attention as segmentation masks."""
+
+    def forward(self, inputs: Optional[torch.Tensor], slots: torch.Tensor,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                weights: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(slots [B, S, D], masks [B, S, N]); arguments as ``_run``."""
+        slots, attn = self._run(inputs, slots, kv, weights)
+        return slots, attn.to(slots.dtype).transpose(1, 2)

@@ -42,6 +42,15 @@ def dump_obj(obj: Any, path: str) -> None:
         pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
+def atomic_write_npy(arr: np.ndarray, path: str) -> None:
+    """Write a ``.npy`` through a temporary file and a rename, so a killed
+    job never leaves a truncated file for a restart to skip."""
+    mkdir_or_exist(os.path.dirname(path))
+    tmp = path + ".tmp.npy"
+    np.save(tmp, arr)
+    os.replace(tmp, path)
+
+
 def symlink_force(target: str, link: str) -> None:
     """Point ``link`` at ``target``, replacing whatever is there.
 

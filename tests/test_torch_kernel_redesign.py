@@ -262,7 +262,8 @@ def test_fused_check_raises_on_what_the_kernel_refuses(case):
 
 
 @pytest.mark.parametrize("D,H,blocks", [(128, 256, 8), (16, 32, 4), (8, 24, 2),
-                                        (4, 2052, 1), (128, 8192, 8)])
+                                        (4, 2052, 1), (128, 8192, 8),
+                                        (192, 384, 8)])
 def test_fused_check_takes_what_a_cluster_block_holds(D, H, blocks):
     """H up to 1024 columns per block of the cluster passes the check (a
     larger shared-memory need is the launch's to refuse)."""

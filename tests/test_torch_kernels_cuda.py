@@ -54,7 +54,8 @@ def _inputs(B, N, D, S, H, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D,S,H", [(8, 4096, 128, 7, 256),
                                        (3, 1000, 128, 5, 256),
-                                       (2, 777, 64, 8, 96)])
+                                       (2, 777, 64, 8, 96),
+                                       (8, 4096, 192, 6, 384)])
 def test_kernel_matches_plain(cuda, B, N, D, S, H):
     k, v, slots, wp = _inputs(B, N, D, S, H, cuda)
     before = k1.LAUNCHES
@@ -153,7 +154,8 @@ def test_update_kernel_raises_instead_of_falling_back(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D,S,H", [(8, 4096, 128, 7, 256),
-                                       (3, 1000, 128, 5, 256)])
+                                       (3, 1000, 128, 5, 256),
+                                       (8, 4096, 192, 6, 384)])
 def test_kernel_is_bit_stable(cuda, B, N, D, S, H):
     k, v, slots, wp = _inputs(B, N, D, S, H, cuda, seed=2)
     first = k1.fused_slot_attention(k, v, slots, wp, 2, S, D ** -0.5, 1e-6)

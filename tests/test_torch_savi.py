@@ -1,5 +1,6 @@
 """Port vs JAX: StoSAVi encode (one clip and chunked with carry), decode,
-the testing forward, the weight bridge and golden group ``g_savi``.
+the testing forward, the weight bridge and golden group ``g_savi`` (with
+its LSTM predictor).
 
 Inputs, weights and the kernel-sampling noise (``sample_eps``) are the same
 numpy arrays on both sides. Tolerance: rtol 1e-4 / atol 1e-5 for single
@@ -131,9 +132,8 @@ def test_weight_bridge_inverts_torch_compat():
 
 
 def test_golden_g_savi():
-    """The reference's StoSAVi (an LSTM-wrapped transformer predictor, not
-    ported yet): the frame encoder on all frames, the first frame's slots,
-    which no predictor touches, and the decoder."""
+    """The reference's StoSAVi with an LSTM-wrapped transformer predictor:
+    the frame encoder, the whole 4-frame encode and the decoder."""
     sd, ins, outs = golden_group("g_savi")
     port = StoSAVi(
         resolution=(64, 64),
@@ -143,23 +143,19 @@ def test_golden_g_savi():
                       enc_out_channels=16),
         dec_dict=dict(dec_channels=(16, 8, 8), dec_resolution=(16, 16),
                       dec_ks=5, dec_norm=""),
-        pred_dict=dict(pred_type="transformer", pred_rnn=False,
+        pred_dict=dict(pred_type="transformer", pred_rnn=True,
                        pred_num_layers=1, pred_num_heads=4, pred_ffn_dim=32),
         loss_dict=dict(use_post_recon_loss=True, kld_method="none"),
     ).eval()
-    sd = {k: v for k, v in state_dict(sd).items() if not k.startswith("predictor.")}
-    missing, unexpected = port.load_state_dict(sd, strict=False)
-    assert not unexpected and all(k.startswith("predictor.") for k in missing)
+    port.load_state_dict(state_dict(sd))
 
     img = np.transpose(ins["img"], (0, 1, 3, 4, 2))  # NCHW video -> NHWC
     with torch.no_grad():
-        feats = port.frame_encoder(t(img.reshape(-1, 64, 64, 3)))
-        kd, ps, _, _ = port.encode(t(img[:, :1]))
+        kd, ps, feats, _ = port.encode(t(img))
         rc, recons, masks, _ = port.decode(t(ins["dec_slots"]))
-    close(feats.reshape(outs["encoder_out"].shape), outs["encoder_out"],
-          rtol=2e-3, atol=2e-4)
-    close(kd[:, 0], outs["kernel_dist"][:, 0], rtol=2e-3, atol=2e-4)
-    close(ps[:, 0], outs["post_slots"][:, 0], rtol=5e-3, atol=5e-4)
+    close(feats, outs["encoder_out"], rtol=2e-3, atol=2e-4)
+    close(kd, outs["kernel_dist"], rtol=2e-3, atol=2e-4)
+    close(ps, outs["post_slots"], rtol=5e-3, atol=5e-4)
     close(rc, np.transpose(outs["recon_combined"], (0, 2, 3, 1)),
           rtol=2e-3, atol=2e-4)
     close(recons, np.transpose(outs["recons"], (0, 1, 3, 4, 2)),

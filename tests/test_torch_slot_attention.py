@@ -40,7 +40,8 @@ def _port_sa(params, in_features, iters, S, D, H) -> SlotAttention:
 
 
 @pytest.mark.parametrize("B,N,D,S,H,iters", [(2, 48, 16, 7, 32, 2),
-                                              (3, 37, 32, 3, 24, 3)])
+                                              (3, 37, 32, 3, 24, 3),
+                                              (2, 64, 192, 6, 384, 2)])
 def test_plain_matches_jax_fused_reference(B, N, D, S, H, iters):
     r = rng(0)
     k, v, slots = randn(r, B, N, D), randn(r, B, N, D), randn(r, B, S, D)
