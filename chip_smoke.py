@@ -14,8 +14,9 @@ exits non-zero:
                kernel's registers and spills as ``ptxas`` reports them.
   3. kernel  - kernel K1 against its plain PyTorch version on the card at the
                CLEVRER extraction shape, a ragged N, S=8, the training
-               batch (B=64) and the STEVE extraction shape (B=8, N=4096,
-               D=192, S=6, H=384); a second call must give the same bits; times
+               batch (B=64), the STEVE extraction shape (B=8, N=4096,
+               D=192, S=6, H=384) and STEVE's training batch (B=48); a
+               second call must give the same bits; times
                both (K1 on weights packed beforehand, as the model calls
                it, and with the packing inside every call), K1 also with k
                and v cold in the L2 cache, the host's time to enqueue a
@@ -78,26 +79,56 @@ exits non-zero:
                folders of 150 128x128 frames rendered by the synthetic
                renderer (6 + 2 training videos, 2 + 2 readout videos) and
                split files, ``datasets.physion._SPLIT_DIR`` pointed at them.
- 12. tokenize - a full-width ``dvae_physion_params`` dVAE (vocab 4096,
-               random weights from a seed) through ``cli.tokenize_images``:
-               every token file [150, 1024] int32 in range; the dVAE card
-               against CPU on 4 frames (logits, ids up to a tie); frames/s.
- 13. steve_extract - a full-width ``steve_physion_params`` STEVE (the dVAE
-               above under ``dvae.*``) through ``cli.extract_slots`` on the
+ 12. train_dvae - the full-width ``dvae_physion_params`` dVAE (vocab 4096,
+               B=64) trained by ``cli.train.run`` for one epoch (14 steps
+               over 6 x 150 frames): one B=2 step card against CPU on the
+               same gumbel uniforms (losses, every gradient); tau along its
+               schedule in the log, the sample video, a checkpoint that
+               reloads; steps/s. Its checkpoint is the dVAE of every later
+               phase.
+ 13. tokenize - that dVAE through ``cli.tokenize_images``: every token file
+               [150, 1024] int32 in range; the dVAE card against CPU on 4
+               frames (logits, ids up to a tie); frames/s.
+ 14. train_steve - the full-width ``steve_physion_params`` STEVE (6 slots x
+               192, B=48, 6-frame clips, ``dec_lr``, clip 0.05) trained by
+               ``cli.train.run`` for one epoch (18 steps) under bf16
+               autocast on the loader's tokens, the dVAE grafted from its
+               trainer's checkpoint: one float32 B=2 step card against CPU
+               and against K1's plain version (losses, every gradient); the
+               K1 launch count, K1's ``autograd.Function`` in every frame
+               step, the dVAE bit-frozen, the token decoder moved, two
+               param groups, a checkpoint that reloads; steps/s, peak
+               memory, a float32 step beside a bf16 one, a profiled step
+               (encoder, K1 forward, token decoder, backward, K1's
+               backward, optimizer, device idle); K1's gradient at the
+               training shape (48, 4096, 192, 6, 384) against plain
+               autograd.
+ 15. steve_extract - that STEVE through ``cli.extract_slots`` on the
                training and readout subsets: K1 launched once per frame
                step per batch, the files and their ``{subset}_slots.pkl``
                links; one 6-frame clip at B=2 card against CPU and against
                K1's plain version on the card (slots and masks, per frame);
                frames/s and K1's share of the device trace.
- 14. steve_rollout - a full-width ``slotformer_physion_params``
-               STEVESlotFormer (STEVE's dVAE and token decoder grafted)
-               through ``cli.rollout_slots --task physion --subset readout``,
-               45 -> 150 frames; one video card against CPU.
- 15. steve_decode - ``STEVESlotFormer.rollout(decode=True)`` for 2 frames of
+ 16. train_steve_slotformer - the full-width ``slotformer_physion_params``
+               STEVESlotFormer (d256, 8 layers, 15 + 10 frames at frame
+               offset 3, B=128) trained by ``cli.train.run`` for one epoch
+               on the training subset's slots, STEVE's token decoder and
+               dVAE grafted from its checkpoint: one B=2 step card against
+               CPU; the grafted subtrees bit-frozen, the rollouter moved,
+               the config's (absent) loss-decay ramp, a checkpoint that
+               reloads; steps/s.
+ 17. steve_rollout - that STEVESlotFormer through ``cli.rollout_slots
+               --task physion --subset readout``, 45 -> 150 frames; one
+               video card against CPU.
+ 18. steve_decode - ``STEVESlotFormer.rollout(decode=True)`` for 2 frames of
                2 videos: 1024 KV-cached token steps an image, then the dVAE;
                ms per image and per token step, the device idle share; one
                image card against CPU (teacher-forced logits, generated ids
                up to a tie, hard and soft images).
+
+The Physion phases run in the temporary directory of their tree, where each
+training phase links its checkpoint as ``pretrained/<run>/model.pth``, the
+path the next stage's shipped config names.
 
 Every phase's seconds follow it on a line of their own.
 
@@ -111,8 +142,10 @@ its launches through its entry point; every number measured in this run but
 ``{"ok": true, "device": {...}}``. K1's ``launches_by_path`` also counts the
 encode of the slots file that SlotFormer trains on and ``test_vp`` evaluates
 (SlotFormer itself launches no kernel of this repository: it reads K1's
-slots) and STEVE's extraction; its ``steve_case`` holds K1 at the STEVE
-shape. Without a CUDA device it exits 1 and prints no result.
+slots) and STEVE's training and extraction; its ``steve_case`` holds K1 at
+the STEVE extraction shape and ``steve_train_case`` at STEVE's training
+shape, with its gradient check. Without a CUDA device it exits 1 and prints
+no result.
 """
 
 from __future__ import annotations
@@ -157,13 +190,27 @@ SF_BF16_IMG_RTOL, SF_BF16_SLOT_RTOL = 3e-2, 2e-5
 # from exact integer counts whose float32 sums may round in another order;
 # the box matching is discrete.
 VP_PIXEL_RTOL, VP_CLUSTER_ATOL = 1e-4, 1e-5
-# STEVE on Physion, full width with random weights: K1 at the extraction
+# STEVE on Physion, full width: K1 at the extraction
 # shape (B, N, D, S, H) = (8, 64x64 features of 128x128 frames, 192, 6, 384)
 STEVE_K1_SHAPE = (8, 4096, 192, 6, 384)
+# STEVE training: K1 at the batch of steve_physion_params, (48, 4096, 192, 6,
+# 384), forward through the kernel and backward through the autograd of its
+# plain version. Its gradients through the kernel's autograd.Function and
+# through plain autograd differentiate the same plain version on the same
+# inputs: only the order of the card's reductions may differ.
+STEVE_TRAIN_K1_SHAPE = (48, 4096, 192, 6, 384)
+K1_GRAD_RTOL = 1e-5
 # STEVE extraction, card against CPU on one 6-frame clip: the slots pass 6
 # recurrent frame steps (an LSTM-wrapped 2-layer predictor, then K1) at
 # D=192 and O(1) magnitudes; the masks are softmaxes in [0, 1].
 STEVE_SLOTS_ATOL, STEVE_MASKS_ATOL = 1e-3, 1e-4
+# One dVAE train step (B=2, vocab 4096, tau 0.55), card and CPU in float32
+# each against the same step in float64 on the CPU: losses as TRAIN_LOSS_RTOL;
+# gradients relative to each one's largest entry. The weight gradient of the
+# decoder's first block sums a softmax over 4096 tokens against the backward
+# of a GroupNorm over 64 x 32 x 32 values. There float32 on the CPU of the
+# card's host sat 2.1e-3 from float64, the card's float32 7.3e-6.
+DVAE_GRAD_RTOL = 5e-3
 # The dVAE's logits card against CPU, relative to the largest |logit|: 9
 # convolutions in float32; an id may differ only where its top two logits
 # lie closer than DVAE_TIE.
@@ -303,7 +350,8 @@ def phase_kernel():
                                  ("ragged_n", (8, 1000, 128, 5, 256)),
                                  ("eight_slots", (4, 4096, 128, 8, 256)),
                                  ("train_batch", (64, 4096, 128, 7, 256)),
-                                 ("steve", STEVE_K1_SHAPE)):
+                                 ("steve", STEVE_K1_SHAPE),
+                                 ("steve_train", STEVE_TRAIN_K1_SHAPE)):
         k, v, slots, wp = k1_inputs(B, N, D, S, H, seed=len(results))
         args = (k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
         got = k1.fused_slot_attention(*args)
@@ -511,6 +559,52 @@ def _grad_errors(got, want):
     return worst
 
 
+def _read_log(ckp):
+    """The JSONL log of a fit: (every record, the train records)."""
+    with open(os.path.join(ckp, "log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    return log, [r for r in log if r["phase"] == "train"]
+
+
+def _finite(log):
+    """Some train record, and every loss and gradient norm finite."""
+    import numpy as np
+
+    return any(r["phase"] == "train" for r in log) and all(
+        np.isfinite(r[k]) for r in log for k in r
+        if k.endswith("loss") or k == "grad_norm")
+
+
+def _reloads(method, params, ckp):
+    """A fresh method of ``params`` loads the newest checkpoint of ``ckp``
+    and then holds ``method``'s step and weights, bit for bit."""
+    import torch
+
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.methods import build_method
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import BaseDataModule, latest_checkpoint
+
+    torch.manual_seed(123)
+    fresh = build_method(model=build_model(params, device=DEVICE),
+                         datamodule=BaseDataModule(params, *build_dataset(params)),
+                         params=params, ckp_path=ckp)
+    fresh.load_ckp(latest_checkpoint(ckp))
+    return fresh.it == method.it and all(
+        torch.equal(a, b) for a, b in zip(method.model.state_dict().values(),
+                                          fresh.model.state_dict().values()))
+
+
+def _steady_steps_per_s(method, n_steps=5):
+    """Loader steps a second of ``method``'s train step on one batch, after
+    a warm-up step (the weights go on training: the checkpoints are
+    written before); returns (steps/s, the batch)."""
+    batch = next(iter(method.train_loader))
+    method._train_step(batch)
+    _, dt = wall_s(lambda: [method._train_step(batch) for _ in range(n_steps)])
+    return n_steps / dt, batch
+
+
 def phase_train():
     import tempfile
     from unittest import mock
@@ -522,11 +616,9 @@ def phase_train():
     from slotformer_tpu_torch.cli import train as train_cli
     from slotformer_tpu_torch.datasets import build_dataset
     from slotformer_tpu_torch.kernels import slot_attention as k1
-    from slotformer_tpu_torch.methods import build_method
     from slotformer_tpu_torch.models import build_model
     from slotformer_tpu_torch.models import slot_attention as sa_module
-    from slotformer_tpu_torch.runtime import (BaseDataModule, latest_checkpoint,
-                                              load_params)
+    from slotformer_tpu_torch.runtime import latest_checkpoint, load_params
 
     params = load_params(os.path.join(CONFIGS, "stosavi_clevrer_params.py"))
     # synthetic 64x64 clips (the CLEVRER videos are not in the repository):
@@ -596,28 +688,13 @@ def phase_train():
         sampled_frames = sampled * len(range(0, val_set.video_len,
                                              val_set.frame_offset))
         expected = T * (steps + val_batches) + sampled_frames
-        with open(os.path.join(ckp, "log.jsonl")) as f:
-            log = [json.loads(line) for line in f]
-        train_log = [r for r in log if r["phase"] == "train"]
-        finite = bool(train_log) and all(
-            np.isfinite(r[k]) for r in log for k in r
-            if k.endswith("loss") or k == "grad_norm")
+        log, train_log = _read_log(ckp)
+        finite = _finite(log)
         last = latest_checkpoint(ckp)
-        torch.manual_seed(123)
-        fresh = build_method(model=build_model(params, device="cuda"),
-                             datamodule=BaseDataModule(params, *build_dataset(params)),
-                             params=params, ckp_path=ckp)
-        fresh.load_ckp(last)
-        reloaded = fresh.it == steps and all(
-            torch.equal(a, b) for a, b in zip(method.model.state_dict().values(),
-                                              fresh.model.state_dict().values()))
-        del fresh
+        reloaded = _reloads(method, params, ckp)
 
         # steady-state steps/s, then one profiled step
-        batch = next(iter(method.train_loader))
-        method._train_step(batch)
-        n_steps = 5
-        _, dt = wall_s(lambda: [method._train_step(batch) for _ in range(n_steps)])
+        steps_per_s, batch = _steady_steps_per_s(method)
         model, opt = method.model, method.optimizer
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -668,7 +745,7 @@ def phase_train():
          val_batches=val_batches, sampled_video_frames=sampled_frames,
          finite=finite, checkpoint=os.path.basename(last),
          reloaded=reloaded, last_train=train_log[-1] if train_log else None,
-         steps_per_s=n_steps / dt, frames_per_s=n_steps * 64 * T / dt,
+         steps_per_s=steps_per_s, frames_per_s=steps_per_s * 64 * T,
          profiled_step=dict(forward_ms=fwd_ms, backward_ms=bwd_ms,
                             optimizer_ms=opt_ms,
                             backward_share=bwd_ms / step_ms,
@@ -821,9 +898,10 @@ def phase_slots_file(workdir):
     return slots_path, savi_ckp, launches
 
 
-def _sf_step(model, batch, weights, factor=1.0):
+def _sf_step(model, batch, weights, factor=None):
     """Losses, rollouter gradients and d(loss)/d(pred_slots) of one
-    dropout-free SlotFormer train step (no optimizer)."""
+    dropout-free SlotFormer or STEVESlotFormer train step (no optimizer);
+    ``factor`` is the loss-decay factor, for SlotFormer."""
     import torch
 
     model.eval()  # dropout-free: train_loss does not look at the mode
@@ -835,14 +913,15 @@ def _sf_step(model, batch, weights, factor=1.0):
 
     hook = model.rollouter.register_forward_hook(keep_grad)
     try:
-        losses = model.train_loss(batch, loss_decay_factor=factor)
+        losses = model.train_loss(batch, **(
+            {} if factor is None else {"loss_decay_factor": factor}))
         sum(weights.get(n, 1.0) * v for n, v in losses.items()).backward()
     finally:
         hook.remove()
     grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
              if p.grad is not None}
-    if any(n.startswith("decoder") for n in grads):
-        raise AssertionError("the frozen decoder got a weight gradient")
+    if any(not n.startswith("rollouter.") for n in grads):
+        raise AssertionError("a frozen subtree got a weight gradient")
     return {n: v.item() for n, v in losses.items()}, grads, seen["dpred"]
 
 
@@ -853,10 +932,8 @@ def phase_train_slotformer(slots_path, savi_ckp, workdir):
 
     from slotformer_tpu_torch.cli import train as train_cli
     from slotformer_tpu_torch.datasets import build_dataset
-    from slotformer_tpu_torch.methods import build_method
     from slotformer_tpu_torch.models import build_model
-    from slotformer_tpu_torch.runtime import (BaseDataModule, graft,
-                                              latest_checkpoint, load_checkpoint)
+    from slotformer_tpu_torch.runtime import graft, latest_checkpoint, load_checkpoint
 
     params = slotformer_params(slots_path, savi_ckp, max_epochs=2,
                                eval_interval=2, print_iter=1,
@@ -922,12 +999,8 @@ def phase_train_slotformer(slots_path, savi_ckp, workdir):
         params, ckp, device=DEVICE, san_check_val_step=1))
     model, steps = method.model, method.it
     nc = -(-B * model.rollout_len // model.dec_chunk_frames)
-    with open(os.path.join(ckp, "log.jsonl")) as f:
-        log = [json.loads(line) for line in f]
-    train_log = [r for r in log if r["phase"] == "train"]
-    finite = bool(train_log) and all(
-        np.isfinite(r[k]) for r in log for k in r
-        if k.endswith("loss") or k == "grad_norm")
+    log, train_log = _read_log(ckp)
+    finite = _finite(log)
     decay_steps = params.loss_decay_pct * method.total_steps
     ramp = [min(0.01 + i / decay_steps * 0.99, 1.0) for i in range(steps)]
     factors = [r.get("loss_decay_factor") for r in train_log]
@@ -937,23 +1010,11 @@ def phase_train_slotformer(slots_path, savi_ckp, workdir):
     frozen = len(dec_keys) == 13 and all(
         torch.equal(model.state_dict()[k].cpu(), savi_sd[k]) for k in dec_keys)
     last = latest_checkpoint(ckp)
-    torch.manual_seed(123)
-    fresh = build_method(model=build_model(params, device=DEVICE),
-                         datamodule=BaseDataModule(params, *build_dataset(params)),
-                         params=params, ckp_path=ckp)
-    fresh.load_ckp(last)
-    reloaded = fresh.it == steps and all(
-        torch.equal(a, b) for a, b in zip(model.state_dict().values(),
-                                          fresh.model.state_dict().values()))
-    del fresh
+    reloaded = _reloads(method, params, ckp)
     videos = sorted(os.listdir(os.path.join(ckp, "vis")))
 
     # (c) steady-state steps/s, one profiled step, then each branch
-    loader_batch = next(iter(method.train_loader))
-    method._train_step(loader_batch)
-    n_steps = 5
-    _, dt = wall_s(lambda: [method._train_step(loader_batch)
-                            for _ in range(n_steps)])
+    steps_per_s, loader_batch = _steady_steps_per_s(method)
     opt = method.optimizer
     db = method._to_device(loader_batch)
     model.train()
@@ -1030,8 +1091,8 @@ def phase_train_slotformer(slots_path, savi_ckp, workdir):
          loss_decay_factors=factors, ramp_ok=ramp_ok, decoder_bit_frozen=frozen,
          checkpoint=os.path.basename(last), reloaded=reloaded, videos=videos,
          last_train=train_log[-1] if train_log else None,
-         steps_per_s=n_steps / dt,
-         rollout_frames_per_s=n_steps * B * model.rollout_len / dt,
+         steps_per_s=steps_per_s,
+         rollout_frames_per_s=steps_per_s * B * model.rollout_len,
          profiled_step=dict(rollouter_forward_ms=ro_ms,
                             img_loss_decoder_fwd_bwd_ms=img_ms,
                             backward_ms=bwd_ms, optimizer_ms=opt_ms,
@@ -1204,9 +1265,109 @@ def _top2_gap(logits):
     return top[..., 0] - top[..., 1]
 
 
-def phase_tokenize(workdir):
-    """The full-width dVAE (vocab 4096) through ``cli.tokenize_images``; its
-    checkpoint is returned for STEVE."""
+def _link_pretrained(name, ckp_file):
+    """``pretrained/<name>/model.pth`` (the shipped configs' path, relative
+    to the working directory) -> the checkpoint a phase trained."""
+    os.makedirs(os.path.join("pretrained", name), exist_ok=True)
+    os.symlink(os.path.abspath(ckp_file),
+               os.path.join("pretrained", name, "model.pth"))
+
+
+def phase_train_dvae(workdir):
+    """The full-width dVAE (vocab 4096, B=64, 128x128 frames) trained for
+    one epoch through ``cli.train.run``; its checkpoint is the dVAE of every
+    later Physion phase. Returns the checkpoint's path."""
+    import numpy as np
+    import torch
+
+    from slotformer_tpu_torch.cli import train as train_cli
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import latest_checkpoint
+
+    _, params = physion_params(workdir, "dvae_physion_params", max_epochs=1,
+                               print_iter=1)
+    B = params.train_batch_size
+
+    # (a) one step at B=2, card against CPU, on the same gumbel uniforms
+    train_set, _ = build_dataset(params)
+    img = torch.from_numpy(np.stack([train_set[i]["img"]
+                                     for i in (0, len(train_set) // 2)]))
+    hw = (params.resolution[0] // 4, params.resolution[1] // 4)
+    u = torch.rand(2, 1, *hw, params.vocab_size,
+                   generator=torch.Generator().manual_seed(1))
+    torch.manual_seed(8)
+    gpu = build_model(params, device=DEVICE)
+    cpu = build_model(params, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    f64 = build_model(params, device="cpu").double()
+    f64.load_state_dict(gpu.state_dict())
+
+    def one_step(model, device, dtype=torch.float32):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        batch = {"img": img.to(device, dtype)}
+        out = model(batch, tau=0.55, uniform=u.to(device, dtype))
+        losses = model.calc_train_loss(batch, out)
+        losses["recon_loss"].backward()
+        return ({n: v.item() for n, v in losses.items()},
+                {n: p.grad.detach().cpu().double()
+                 for n, p in model.named_parameters()})
+
+    l_64, g_64 = one_step(f64, "cpu", torch.float64)
+    errs = {}
+    for side, (model, device) in (("card", (gpu, DEVICE)), ("cpu", (cpu, "cpu"))):
+        losses, grads = one_step(model, device)
+        errs[side] = dict(losses=losses,
+                          loss_rel_err=max(abs(losses[n] / l_64[n] - 1) for n in l_64),
+                          grad_rel_err=_grad_errors(grads, g_64))
+        if side == "card":
+            g_card = grads
+        else:
+            errs["card_vs_cpu_grad_rel_err"] = _grad_errors(g_card, grads)
+    step_ok = all(errs[s]["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                  and errs[s]["grad_rel_err"][0] <= DVAE_GRAD_RTOL
+                  for s in ("card", "cpu"))
+    emit(phase="train_dvae", check="one_step", batch=2, tau=0.55,
+         vs_cpu_float64=errs, n_params=len(g_64),
+         tol_loss_rtol=TRAIN_LOSS_RTOL, tol_grad_rel=DVAE_GRAD_RTOL, ok=step_ok)
+    if not step_ok:
+        raise AssertionError("dVAE train step: the card or the CPU is off "
+                             "the float64 step")
+    del gpu, cpu, f64
+
+    # (b) one epoch through the CLI's code
+    ckp = os.path.join(workdir, "ckpts", "dvae_physion_params")
+    params.seed = 0
+    method, fit_s = wall_s(lambda: train_cli.run(
+        params, ckp, device=DEVICE, san_check_val_step=1))
+    steps, (log, train_log) = method.it, _read_log(ckp)
+    taus = [r["tau"] for r in train_log]
+    want = [method.train_loss_kwargs(i)["tau"] for i in range(steps)]
+    tau_ok = (len(taus) == steps and bool(np.allclose(taus, want, rtol=1e-6))
+              and taus[0] == params.init_tau and taus[-1] < taus[0])
+    last = latest_checkpoint(ckp)
+    reloaded = _reloads(method, params, ckp)
+    videos = sorted(os.listdir(os.path.join(ckp, "vis")))
+    steps_per_s, _ = _steady_steps_per_s(method)
+    ok = (steps == method.total_steps and steps >= 10 and _finite(log)
+          and tau_ok and reloaded and last.endswith(f"model_{steps}.pth")
+          and videos == [f"recon_{steps}.mp4"])
+    emit(phase="train_dvae", check="fit", config="dvae_physion_params",
+         batch=B, vocab=params.vocab_size, steps=steps, fit_seconds=fit_s,
+         tau_by_step=taus, tau_ok=tau_ok, finite=_finite(log),
+         checkpoint=os.path.basename(last), reloaded=reloaded, videos=videos,
+         last_train=train_log[-1] if train_log else None,
+         steps_per_s=steps_per_s,
+         frames_per_s=steps_per_s * B * params.n_sample_frames, ok=ok)
+    if not ok:
+        raise AssertionError("dVAE training check failed")
+    _link_pretrained("dvae_physion_params", last)
+    return last
+
+
+def phase_tokenize(workdir, dvae_ckp):
+    """The dVAE just trained through ``cli.tokenize_images``."""
     import numpy as np
     import torch
 
@@ -1214,13 +1375,12 @@ def phase_tokenize(workdir):
     from slotformer_tpu_torch.datasets import build_dataset
     from slotformer_tpu_torch.datasets.physion import token_path
     from slotformer_tpu_torch.models import build_model
-    from slotformer_tpu_torch.runtime import save_checkpoint
+    from slotformer_tpu_torch.runtime import load_checkpoint
 
     cfg, params = physion_params(workdir, "dvae_physion_params")
-    torch.manual_seed(5)
     dvae = build_model(params, device=DEVICE)
-    ckp = os.path.join(workdir, "ckpts", "dvae_physion_params", "model.pth")
-    save_checkpoint(ckp, {k: v.cpu() for k, v in dvae.state_dict().items()})
+    dvae.load_state_dict(load_checkpoint(dvae_ckp)["state_dict"])
+    ckp = dvae_ckp
     with torch.inference_mode():  # warm-up: the convolutions' first calls
         dvae.tokenize(torch.zeros(64, *params.resolution, 3, device=DEVICE))
     stats, dt = wall_s(lambda: tokenize_images.main(
@@ -1262,13 +1422,257 @@ def phase_tokenize(workdir):
          ok=ok)
     if not ok:
         raise AssertionError("tokenize check failed")
-    return ckp
 
 
-def phase_steve_extract(workdir, dvae_ckp, k1_ms):
-    """A full-width STEVE (the dVAE above under ``dvae.*``) through
-    ``cli.extract_slots`` on the training and readout subsets; returns its
-    checkpoint and the K1 launches."""
+def _k1_grad_check():
+    """K1's gradients at STEVE's training shape through its
+    ``autograd.Function`` against plain autograd of its plain version, and
+    the time of that backward."""
+    import torch
+
+    from slotformer_tpu_torch.kernels import slot_attention as k1
+
+    B, N, D, S, H = STEVE_TRAIN_K1_SHAPE
+    k, v, slots, wp = k1_inputs(B, N, D, S, H, seed=6)
+    xs = [k, v, slots] + [wp[n] for n in k1.WP_KEYS]
+    for x in xs:
+        x.requires_grad_(True)
+    args = (2, S, D ** -0.5, 1e-6)
+    w = dict(zip(k1.WP_KEYS, xs[3:]))
+    out = k1.fused_slot_attention(k, v, slots, w, *args)
+    plain = k1.fused_slot_attention_plain(k, v, slots, w, *args)
+    g_out = [torch.randn_like(o) for o in out]
+    got = torch.autograd.grad(out, xs, g_out, retain_graph=True)
+    want = torch.autograd.grad(plain, xs, g_out, retain_graph=True)
+    errs = {name: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for name, a, b in zip(("k", "v", "slots") + k1.WP_KEYS, got, want)}
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, g_out,
+                                                 retain_graph=True), iters=5)
+    worst = max(errs, key=errs.get)
+    return dict(grad_rel_err_vs_plain_autograd=errs[worst], worst_input=worst,
+                tol_grad_rel=K1_GRAD_RTOL, backward_ms_plain_autograd=bwd_ms,
+                ok=errs[worst] <= K1_GRAD_RTOL)
+
+
+def phase_train_steve(workdir, dvae_ckp):
+    """STEVE at the full ``steve_physion_params`` width (6 slots x 192, B=48
+    clips of 6 frames, ``dec_lr``, clip 0.05) trained for one epoch under
+    bf16 autocast (the reference's ``--fp16``) through ``cli.train.run``,
+    the dVAE grafted from its trainer's checkpoint (the empty source
+    prefix). Returns (checkpoint, K1 launches of the fit, K1's gradient
+    check at the training shape)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from slotformer_tpu_torch.cli import train as train_cli
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.kernels import slot_attention as k1
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.models import slot_attention as sa_module
+    from slotformer_tpu_torch.runtime import graft, latest_checkpoint, load_checkpoint
+
+    _, params = physion_params(workdir, "steve_physion_params", max_epochs=1,
+                               print_iter=1)
+    B, T = params.train_batch_size, params.n_sample_frames
+    weights = params.loss_weights()
+    dvae_sd = load_checkpoint(dvae_ckp)["state_dict"]
+
+    # (a) one float32 step at B=2 on the loader's tokens, dropout off:
+    # card against CPU, and against the card with K1's plain version
+    train_set, _ = build_dataset(params)
+    items = [train_set[i] for i in (0, len(train_set) // 2)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in ("img", "token_id")}
+    torch.manual_seed(9)
+    gpu = build_model(params, device=DEVICE)
+    gpu.load_state_dict(graft(gpu.state_dict(), dvae_sd, {"dvae": ""}))
+    cpu = build_model(params, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    for m in (gpu, cpu):
+        for n, p in m.named_parameters():
+            p.requires_grad_(not n.startswith("dvae."))
+        # dropout off in training mode: the cuDNN LSTM of the predictor
+        # differentiates only in training mode
+        m.train()
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.Dropout):
+                mod.p = 0.0
+            elif isinstance(getattr(mod, "dropout", None), float):
+                mod.dropout = 0.0  # attention dropout
+
+    def one_step(model, device):
+        model.zero_grad(set_to_none=True)
+        losses = model.train_loss({k: v.to(device) for k, v in batch.items()})
+        sum(weights.get(n, 1.0) * v for n, v in losses.items()).backward()
+        return ({n: v.item() for n, v in losses.items()},
+                {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                 if p.grad is not None})
+
+    l_cpu, g_cpu = one_step(cpu, "cpu")
+    l_gpu, g_gpu = one_step(gpu, DEVICE)
+    with mock.patch.object(sa_module, "fused_slot_attention",
+                           k1.fused_slot_attention_plain):
+        l_plain, g_plain = one_step(gpu, DEVICE)
+    loss_err_cpu = max(abs(l_gpu[n] / l_cpu[n] - 1) for n in l_cpu)
+    loss_err_plain = max(abs(l_gpu[n] / l_plain[n] - 1) for n in l_plain)
+    grad_err_cpu, worst_cpu = _grad_errors(g_gpu, g_cpu)
+    grad_err_plain, worst_plain = _grad_errors(g_gpu, g_plain)
+    step_ok = (max(loss_err_cpu, loss_err_plain) <= TRAIN_LOSS_RTOL
+               and max(grad_err_cpu, grad_err_plain) <= TRAIN_GRAD_RTOL
+               and len(g_cpu) == len(g_gpu) > 0)
+    emit(phase="train_steve", check="one_step", batch=2, frames=T,
+         losses_card=l_gpu, loss_rel_err_vs_cpu=loss_err_cpu,
+         loss_rel_err_vs_plain_k1=loss_err_plain,
+         grad_rel_err_vs_cpu=grad_err_cpu, worst_param_vs_cpu=worst_cpu,
+         grad_rel_err_vs_plain_k1=grad_err_plain,
+         worst_param_vs_plain_k1=worst_plain, n_grads=len(g_cpu),
+         tol_loss_rtol=TRAIN_LOSS_RTOL, tol_grad_rel=TRAIN_GRAD_RTOL, ok=step_ok)
+    if not step_ok:
+        raise AssertionError("STEVE train step: the card disagrees with the "
+                             "CPU or with the plain K1")
+    del gpu, cpu, g_cpu, g_gpu, g_plain
+
+    # (b) one epoch through the CLI's code under bf16 autocast
+    ckp = os.path.join(workdir, "ckpts", "steve_physion_params")
+    params.seed = 0
+    torch.manual_seed(params.seed)  # the weights run() starts from
+    init = build_model(params, device="cpu").state_dict()
+    k1.LAUNCHES = 0
+    method, fit_s = wall_s(lambda: train_cli.run(
+        params, ckp, device=DEVICE, use_fp16=True, san_check_val_step=1))
+    launches, steps = k1.LAUNCHES, method.it
+    val_batches = 1 + len(method.val_loader)  # sanity check + epoch end
+    # the decomposition video encodes n_samples whole val videos, one K1
+    # call a frame
+    val_set = method.val_loader.dataset
+    sampled = min(int(params.n_samples), val_set.num_videos)
+    sampled_frames = sampled * len(range(0, val_set.video_len, val_set.frame_offset))
+    expected = T * (steps + val_batches) + sampled_frames
+    log, train_log = _read_log(ckp)
+    sd = {k: v.cpu() for k, v in method.model.state_dict().items()}
+    dvae_frozen = len(dvae_sd) > 0 and all(
+        torch.equal(sd["dvae." + k], v) for k, v in dvae_sd.items())
+    moved = {p: max((sd[k] - init[k]).abs().max().item() for k in init
+                    if k.startswith(p + ".") and init[k].is_floating_point())
+             for p in ("trans_decoder", "slot_attention", "encoder")}
+    groups = [len(g["params"]) for g in method.optimizer.optimizer.param_groups]
+    last = latest_checkpoint(ckp)
+    reloaded = _reloads(method, params, ckp)
+    videos = sorted(os.listdir(os.path.join(ckp, "vis")))
+
+    # (c) steady state: K1's Function in a train step, steps/s and memory
+    # under bf16 and in float32
+    model, opt = method.model, method.optimizer
+    loader_batch = next(iter(method.train_loader))
+    with mock.patch.object(k1._FusedSlotAttention, "apply",
+                           wraps=k1._FusedSlotAttention.apply) as fn:
+        method._train_step(loader_batch)
+    function_calls = fn.call_count
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bf16_steps_per_s, _ = _steady_steps_per_s(method)
+    bf16_peak = torch.cuda.max_memory_allocated()
+    method.use_fp16 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f32_steps_per_s, _ = _steady_steps_per_s(method, n_steps=2)
+    f32_peak = torch.cuda.max_memory_allocated()
+    method.use_fp16 = True
+
+    # (d) one profiled bf16 step: the encoder (CNN, predictor, K1's
+    # forward, 6 frame steps), the token decoder and its loss, the
+    # decoder's backward (until the slots' gradient is ready), the rest of
+    # the backward (K1's plain-autograd backward in it), the optimizer
+    db = method._to_device(loader_batch)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+
+    def decoder_done(mod, args, out):
+        ev[2].record()
+        args[0].register_hook(lambda g: ev[4].record())
+
+    hooks = [model.trans_decoder.register_forward_pre_hook(
+                 lambda mod, args: ev[1].record()),
+             model.trans_decoder.register_forward_hook(decoder_done)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    model.train()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                ev[0].record()
+                losses = model.train_loss(db, generator=method.generator)
+                total = sum(weights.get(n, 1.0) * v.float()
+                            for n, v in losses.items())
+                ev[3].record()
+            total.backward()
+            ev[5].record()
+            opt.step(method.it)
+            opt.zero_grad()
+            ev[6].record()
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    enc_ms, dec_ms, _, dec_bwd_ms, enc_bwd_ms, opt_ms = (
+        ev[i].elapsed_time(ev[i + 1]) for i in range(6))
+    dec_ms += ev[2].elapsed_time(ev[3])  # the loss on the logits
+    step_ms = ev[0].elapsed_time(ev[6])
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1_fwd_ms = sum(e.self_device_time_total for e in kernels
+                    if "fused_slot_attention_" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    del prof, losses, total, db
+
+    # (e) K1's gradient at the training shape, against plain autograd
+    k1_grad = _k1_grad_check()
+    k1_bwd_ms = T * k1_grad["backward_ms_plain_autograd"]
+    ok = (steps == method.total_steps and steps >= 10 and launches == expected
+          and _finite(log) and dvae_frozen and moved["trans_decoder"] > 0
+          and groups == [groups[0], len(dict(model.trans_decoder.named_parameters()))]
+          and reloaded and last.endswith(f"model_{steps}.pth")
+          and videos == [f"decomp_{steps}.mp4"] and function_calls == T
+          and k1_grad["ok"])
+    emit(phase="train_steve", check="fit", config="steve_physion_params",
+         batch=B, frames_per_clip=T, amp="bf16", steps=steps,
+         fit_seconds=fit_s, k1_launches=launches, k1_launches_expected=expected,
+         k1_function_calls_per_step=function_calls, finite=_finite(log),
+         dvae_bit_frozen=dvae_frozen, max_abs_change_from_init=moved,
+         param_groups=groups, clip_grad=params.clip_grad, dec_lr=params.dec_lr,
+         checkpoint=os.path.basename(last), reloaded=reloaded, videos=videos,
+         last_train=train_log[-1] if train_log else None,
+         steps_per_s=bf16_steps_per_s, clips_per_s=bf16_steps_per_s * B,
+         max_memory_allocated_gb=bf16_peak / 1e9,
+         float32=dict(steps_per_s=f32_steps_per_s, step_ms=1e3 / f32_steps_per_s,
+                      max_memory_allocated_gb=f32_peak / 1e9),
+         profiled_step=dict(step_ms=step_ms, encoder_forward_ms=enc_ms,
+                            k1_forward_kernel_ms=k1_fwd_ms,
+                            token_decoder_forward_ms=dec_ms,
+                            token_decoder_backward_ms=dec_bwd_ms,
+                            encoder_backward_ms=enc_bwd_ms,
+                            k1_backward_ms=k1_bwd_ms,
+                            k1_backward_share=k1_bwd_ms / step_ms,
+                            k1_forward_share=k1_fwd_ms / step_ms,
+                            optimizer_ms=opt_ms, device_busy_ms=device_ms,
+                            device_idle_share=1 - device_ms / step_ms,
+                            top_kernels_name_count_ms=[
+                                (e.key[:80], e.count, e.self_device_time_total / 1e3)
+                                for e in top]),
+         k1_grad_at_training_shape=dict(
+             shape=dict(zip("BNDSH", STEVE_TRAIN_K1_SHAPE)), **k1_grad),
+         ok=ok)
+    if not ok:
+        raise AssertionError("STEVE training check failed")
+    _link_pretrained("steve_physion_params", last)
+    return last, launches, k1_grad
+
+
+def phase_steve_extract(workdir, steve_ckp, k1_ms):
+    """The STEVE just trained through ``cli.extract_slots`` on the training
+    and readout subsets; returns the K1 launches."""
     from unittest import mock
 
     import numpy as np
@@ -1281,15 +1685,12 @@ def phase_steve_extract(workdir, dvae_ckp, k1_ms):
     from slotformer_tpu_torch.kernels import slot_attention as k1
     from slotformer_tpu_torch.models import build_model
     from slotformer_tpu_torch.models import slot_attention as sa_module
-    from slotformer_tpu_torch.runtime import load_checkpoint, load_obj, save_checkpoint
+    from slotformer_tpu_torch.runtime import load_checkpoint, load_obj
 
     cfg, params = physion_params(workdir, "steve_physion_params")
-    torch.manual_seed(6)
     steve = build_model(params, device=DEVICE)
-    steve.dvae.load_state_dict(load_checkpoint(dvae_ckp)["state_dict"])
-    ckp_dir = os.path.join(workdir, "ckpts", "steve_physion_params")
-    ckp = os.path.join(ckp_dir, "model.pth")
-    save_checkpoint(ckp, {k: v.cpu() for k, v in steve.state_dict().items()})
+    steve.load_state_dict(load_checkpoint(steve_ckp)["state_dict"])
+    ckp, ckp_dir = steve_ckp, os.path.dirname(steve_ckp)
     bs, chunk, T = PHYSION["extract_batch"], PHYSION["chunk_len"], PHYSION["video_len"]
     S, D = steve.num_slots, steve.slot_size
     data = os.path.join(workdir, "data", "Physion")
@@ -1374,33 +1775,122 @@ def phase_steve_extract(workdir, dvae_ckp, k1_ms):
          masks_sum_to_1_over_slots=masks_ok, ok=ok)
     if not ok:
         raise AssertionError("STEVE extraction check failed")
-    return ckp, launches
+    return launches
 
 
-def phase_steve_rollout(workdir, steve_ckp):
-    """A full-width STEVESlotFormer (STEVE's dVAE and token decoder grafted)
-    through ``cli.rollout_slots --task physion --subset readout``; returns
-    the model."""
+def phase_train_steve_slotformer(workdir, steve_ckp):
+    """STEVESlotFormer at the full ``slotformer_physion_params`` width (d256,
+    8 layers, 15 burn-in + 10 rollout frames at frame offset 3, B=128)
+    trained for one epoch through ``cli.train.run`` on the training
+    subset's slots, STEVE's token decoder and dVAE grafted from its
+    checkpoint. Returns the checkpoint's path."""
     import numpy as np
     import torch
+
+    from slotformer_tpu_torch.cli import train as train_cli
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import graft, latest_checkpoint, load_checkpoint
+
+    # n_samples 0: the inherited sample video decodes every frame of a val
+    # video by generating its 1024 tokens, ~1.1 s an image on this card
+    # (steve_decode), some 55 s a video
+    _, params = physion_params(
+        workdir, "slotformer_physion_params", max_epochs=1, print_iter=1,
+        n_samples=0,
+        slots_root=os.path.join(workdir, "data", "Physion", "training_slots.pkl"))
+    B, weights = params.train_batch_size, params.loss_weights()
+    steve_sd = load_checkpoint(steve_ckp)["state_dict"]
+    grafts = {"decoder": "trans_decoder", "dvae": "dvae"}
+
+    # (a) one step at B=2, card against CPU
+    train_set, _ = build_dataset(params)
+    batch = {"slots": torch.from_numpy(np.stack(
+        [train_set[i]["slots"] for i in (0, len(train_set) // 2)]))}
+    torch.manual_seed(10)
+    gpu = build_model(params, device=DEVICE)
+    gpu.load_state_dict(graft(gpu.state_dict(), steve_sd, grafts))
+    cpu = build_model(params, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    for m in (gpu, cpu):
+        for n, p in m.named_parameters():
+            if n.startswith(("decoder.", "dvae.")):
+                p.requires_grad_(False)
+    l_gpu, g_gpu, _ = _sf_step(gpu, {"slots": batch["slots"].to(DEVICE)}, weights)
+    l_cpu, g_cpu, _ = _sf_step(cpu, batch, weights)
+    loss_err = max(abs(l_gpu[n] / l_cpu[n] - 1) for n in l_cpu)
+    grad_err, worst = _grad_errors(g_gpu, g_cpu)
+    step_ok = (loss_err <= SF_LOSS_RTOL and grad_err <= SF_GRAD_RTOL
+               and len(g_gpu) == len(g_cpu) > 0)
+    emit(phase="train_steve_slotformer", check="one_step", batch=2,
+         losses_card=l_gpu, loss_rel_err_vs_cpu=loss_err,
+         grad_rel_err_vs_cpu=grad_err, worst_param=worst, n_grads=len(g_cpu),
+         tol_loss_rtol=SF_LOSS_RTOL, tol_grad_rel=SF_GRAD_RTOL, ok=step_ok)
+    if not step_ok:
+        raise AssertionError("STEVESlotFormer train step: the card disagrees "
+                             "with the CPU")
+    del gpu, cpu
+
+    # (b) one epoch through the CLI's code
+    ckp = os.path.join(workdir, "ckpts", "slotformer_physion_params")
+    params.seed = 0
+    torch.manual_seed(params.seed)  # the weights run() starts from
+    init = build_model(params, device="cpu").state_dict()
+    method, fit_s = wall_s(lambda: train_cli.run(
+        params, ckp, device=DEVICE, san_check_val_step=1))
+    model, steps = method.model, method.it
+    log, train_log = _read_log(ckp)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    frozen_keys = [k for k in sd if k.startswith(("decoder.", "dvae."))]
+    frozen = len(frozen_keys) > 0 and all(
+        torch.equal(sd[k], steve_sd["trans_" + k if k.startswith("decoder.")
+                                    else k]) for k in frozen_keys)
+    moved = max((sd[k] - init[k]).abs().max().item() for k in init
+                if k.startswith("rollouter.") and init[k].is_floating_point())
+    # the shipped config sets no loss-decay ramp (use_loss_decay), as the
+    # reference's: train_loss_kwargs is empty and the log has no factor
+    ramp = method.train_loss_kwargs(0)
+    ramp_ok = ramp == {} and not any("loss_decay_factor" in r for r in train_log)
+    last = latest_checkpoint(ckp)
+    reloaded = _reloads(method, params, ckp)
+    steps_per_s, _ = _steady_steps_per_s(method)
+    ok = (steps == method.total_steps and steps >= 3 and _finite(log)
+          and frozen and moved > 0 and ramp_ok and reloaded
+          and last.endswith(f"model_{steps}.pth"))
+    emit(phase="train_steve_slotformer", check="fit",
+         config="slotformer_physion_params", batch=B,
+         frames_per_clip=params.n_sample_frames,
+         frame_offset=params.frame_offset, steps=steps, fit_seconds=fit_s,
+         finite=_finite(log), grafted_bit_frozen=frozen,
+         frozen_tensors=len(frozen_keys), rollouter_max_abs_change=moved,
+         loss_decay=dict(use_loss_decay=bool(params.get("use_loss_decay", False)),
+                         train_loss_kwargs=ramp, ok=ramp_ok),
+         checkpoint=os.path.basename(last), reloaded=reloaded,
+         last_train=train_log[-1] if train_log else None,
+         steps_per_s=steps_per_s,
+         rollout_frames_per_s=steps_per_s * B * model.rollout_len, ok=ok)
+    if not ok:
+        raise AssertionError("STEVESlotFormer training check failed")
+    return last
+
+
+def phase_steve_rollout(workdir, sf_ckp):
+    """The STEVESlotFormer just trained through ``cli.rollout_slots --task
+    physion --subset readout``; returns the model."""
+    import numpy as np
 
     from slotformer_tpu_torch.cli import rollout_slots
     from slotformer_tpu_torch.cli.rollout_slots import interleaved_rollout
     from slotformer_tpu_torch.models import build_model
-    from slotformer_tpu_torch.runtime import (graft, load_checkpoint, load_obj,
-                                              save_checkpoint)
+    from slotformer_tpu_torch.runtime import load_checkpoint, load_obj
 
     data = os.path.join(workdir, "data", "Physion")
     cfg, params = physion_params(
         workdir, "slotformer_physion_params",
         slots_root=os.path.join(data, "training_slots.pkl"))
-    torch.manual_seed(7)
     model = build_model(params, device=DEVICE)
-    model.load_state_dict(graft(model.state_dict(), load_checkpoint(steve_ckp),
-                                {"dvae": "dvae", "decoder": "trans_decoder"}))
-    ckp_dir = os.path.join(workdir, "ckpts", "slotformer_physion_params")
-    ckp = os.path.join(ckp_dir, "model.pth")
-    save_checkpoint(ckp, {k: v.cpu() for k, v in model.state_dict().items()})
+    model.load_state_dict(load_checkpoint(sf_ckp)["state_dict"])
+    ckp, ckp_dir = sf_ckp, os.path.dirname(sf_ckp)
     save = os.path.join(workdir, "out", "readout_rollout_slots.pkl")
     _, dt = wall_s(lambda: rollout_slots.main(
         ["--task", "physion", "--subset", "readout", "--params", cfg,
@@ -1561,13 +2051,25 @@ def main() -> int:
         slots_path, savi_ckp, sf_extract_launches = timed(phase_slots_file, workdir)
         sf_weight = timed(phase_train_slotformer, slots_path, savi_ckp, workdir)
         timed(phase_test_vp, slots_path, sf_weight, workdir)
+    cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:
-        timed(phase_physion_tree, workdir)
-        dvae_ckp = timed(phase_tokenize, workdir)
-        steve_ckp, steve_launches = timed(
-            phase_steve_extract, workdir, dvae_ckp, k1_results["steve"]["ms"])
-        sf_models = timed(phase_steve_rollout, workdir, steve_ckp)
-        timed(phase_steve_decode, *sf_models)
+        # the shipped Physion configs name their pretrained checkpoints
+        # relative to the working directory (pretrained/<run>/model.pth);
+        # each training phase links its checkpoint there
+        os.chdir(workdir)
+        try:
+            timed(phase_physion_tree, workdir)
+            dvae_ckp = timed(phase_train_dvae, workdir)
+            timed(phase_tokenize, workdir, dvae_ckp)
+            steve_ckp, steve_train_launches, k1_grad = timed(
+                phase_train_steve, workdir, dvae_ckp)
+            steve_launches = timed(phase_steve_extract, workdir, steve_ckp,
+                                   k1_results["steve"]["ms"])
+            sf_ckp = timed(phase_train_steve_slotformer, workdir, steve_ckp)
+            sf_models = timed(phase_steve_rollout, workdir, sf_ckp)
+            timed(phase_steve_decode, *sf_models)
+        finally:
+            os.chdir(cwd)
 
     # not measured here: what the earlier kernels took at the cases of the
     # kernels line (K1 with its weights packed inside every call, as
@@ -1578,7 +2080,7 @@ def main() -> int:
                           slot_attention_update=0.0911))
     print(smi, flush=True)
     k1, k2 = k1_results["train_batch"], k2_results["clevrer"]
-    k1_steve = k1_results["steve"]
+    k1_steve, k1_steve_train = k1_results["steve"], k1_results["steve_train"]
     emit(kernels=[
         dict(name="fused_slot_attention", route="cuda",
              source="slotformer_tpu_torch/kernels/csrc/slot_attention.cu",
@@ -1587,12 +2089,19 @@ def main() -> int:
              launches_by_path=dict(train=train_launches,
                                    extract=extract_launches,
                                    slotformer_slots_file=sf_extract_launches,
+                                   steve_train=steve_train_launches,
                                    steve_extract=steve_launches),
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
              steve_case=dict(shape=dict(zip("BNDSH", STEVE_K1_SHAPE)),
-                             **k1_steve)),
+                             **k1_steve),
+             steve_train_case=dict(
+                 shape=dict(zip("BNDSH", STEVE_TRAIN_K1_SHAPE)), **k1_steve_train,
+                 grad_rel_err_vs_plain_autograd=k1_grad[
+                     "grad_rel_err_vs_plain_autograd"],
+                 tol_grad_rel=K1_GRAD_RTOL,
+                 backward_ms_plain_autograd=k1_grad["backward_ms_plain_autograd"])),
         dict(name="slot_attention_update", route="cuda",
              source="slotformer_tpu_torch/kernels/csrc/slot_attention_update.cu",
              replaces="slotformer_tpu/ops/slot_attention_kernel.py:87",

@@ -1,4 +1,9 @@
-"""dVAE tokenizer on Physion (reference base_slots/configs/dvae_physion_params.py)."""
+"""dVAE tokenizer on Physion (reference base_slots/configs/dvae_physion_params.py).
+
+The trainer writes ``model_<it>.pth`` files holding the dVAE at their root;
+the STEVE config grafts one from ``pretrained/dvae_physion_params/model.pth``,
+and ``cli/tokenize_images.py`` reads one through ``--weight``.
+"""
 
 from slotformer_tpu_torch.runtime.params import BaseParams
 

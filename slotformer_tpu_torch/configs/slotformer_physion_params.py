@@ -1,4 +1,13 @@
-"""STEVESlotFormer on Physion slots (reference video_prediction/configs/slotformer_physion_params.py)."""
+"""STEVESlotFormer on Physion slots (reference video_prediction/configs/slotformer_physion_params.py).
+
+``dec_dict['dec_ckp_path']`` names the trained STEVE checkpoint whose token
+decoder (``trans_decoder.*``, grafted as ``decoder.*``) and dVAE
+(``dvae.*``) are grafted and frozen at the start of training: a ``.pth`` of
+this package's trainer or of the reference, read with ``torch.load``. JAX
+``.ckpt.pkl`` files need converting first (not ported yet). The directory
+of ``dvae_dict['dvae_ckp_path']`` names the token tree read when
+``use_img_recon_loss`` is on.
+"""
 
 from slotformer_tpu_torch.runtime.params import BaseParams
 
@@ -48,13 +57,13 @@ class SlotFormerParams(BaseParams):
     dvae_dict = dict(
         down_factor=4,
         vocab_size=4096,
-        dvae_ckp_path='pretrained/dvae_physion_params/model.ckpt.pkl',
+        dvae_ckp_path='pretrained/dvae_physion_params/model.pth',
     )
     dec_dict = dict(
         dec_num_layers=4,
         dec_num_heads=4,
         dec_d_model=slot_size,
-        dec_ckp_path='pretrained/steve_physion_params/model.ckpt.pkl',
+        dec_ckp_path='pretrained/steve_physion_params/model.pth',
     )
     loss_dict = dict(
         rollout_len=10,

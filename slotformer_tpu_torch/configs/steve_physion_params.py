@@ -3,7 +3,14 @@
 Values match base_slots/configs/steve_physion_params.py in the reference:
 10 epochs ~ 460k steps, batch 48, dual LR (model 1e-4 / token decoder 3e-4),
 6 slots x 192d, frozen pretrained dVAE. The reference trains it with
-``--fp16``.
+``--fp16`` (bf16 autocast in this package's trainer).
+
+``dvae_dict['dvae_ckp_path']`` names the dVAE checkpoint grafted under
+``dvae.*`` at the start of training: a ``.pth`` of this package's trainer
+(the dVAE at its root) or of the reference, read with ``torch.load``. JAX
+``.ckpt.pkl`` files need converting first (not ported yet). Its directory,
+``dvae_physion_params``, names the token tree the loader reads
+(``TrainNpys-dvae_physion_params/``).
 """
 
 from slotformer_tpu_torch.runtime.params import BaseParams
@@ -46,7 +53,7 @@ class SlotFormerParams(BaseParams):
     dvae_dict = dict(
         down_factor=4,
         vocab_size=4096,
-        dvae_ckp_path='pretrained/dvae_physion_params/model.ckpt.pkl',
+        dvae_ckp_path='pretrained/dvae_physion_params/model.pth',
     )
     dec_dict = dict(dec_num_layers=4, dec_num_heads=4, dec_d_model=SLOT_SIZE)
     pred_dict = dict(

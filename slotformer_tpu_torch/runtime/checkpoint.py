@@ -48,11 +48,13 @@ def graft(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor],
     .graft`` on the reference's key layout.
 
     ``prefixes`` are top-level names (``'decoder'`` takes ``decoder.*``), or
-    a map from a name in ``dst`` to a name in ``src``. ``src`` is a
+    a map from a name in ``dst`` to a name in ``src``; the name ``''`` in
+    ``src`` is its root (a dVAE trainer's checkpoint *is* the dVAE:
+    ``dvae.encoder.0.m.weight`` <- ``encoder.0.m.weight``). ``src`` is a
     state_dict or a checkpoint dict holding one under ``'state_dict'``. A key
     of a prefix that ``src`` lacks raises ``KeyError``; a shape that differs
-    or, with ``strict``, a key under the prefix that only ``src`` has raises
-    ``ValueError``. The inputs are not changed.
+    or, with ``strict``, a key under the prefix (anywhere, for ``''``) that
+    only ``src`` has raises ``ValueError``. The inputs are not changed.
     """
     src = src.get("state_dict", src)
     if not isinstance(prefixes, Mapping):
@@ -62,8 +64,11 @@ def graft(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor],
         keys = [k for k in dst if k.startswith(dst_prefix + ".")]
         if not keys:
             raise KeyError(f"graft: no key under {dst_prefix!r} in the target")
+        src_dot = src_prefix + "." if src_prefix else ""
+        want = set()
         for k in keys:
-            sk = src_prefix + k[len(dst_prefix):]
+            sk = src_dot + k[len(dst_prefix) + 1:]
+            want.add(sk)
             if sk not in src:
                 raise KeyError(f"graft {dst_prefix!r}: source lacks {sk!r}")
             if tuple(src[sk].shape) != tuple(dst[k].shape):
@@ -72,8 +77,7 @@ def graft(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor],
                     f"{tuple(dst[k].shape)} vs {tuple(src[sk].shape)}")
             out[k] = src[sk].detach().clone()
         if strict:
-            want = {src_prefix + k[len(dst_prefix):] for k in keys}
-            extra = sorted(k for k in src if k.startswith(src_prefix + ".")
+            extra = sorted(k for k in src if k.startswith(src_dot)
                            and k not in want)
             if extra:
                 raise ValueError(f"graft {dst_prefix!r}: the source has keys "

@@ -48,9 +48,9 @@ def cosine_anneal(step: int, start_value: float, final_value: float,
 
 
 class ScheduledOptimizer:
-    """Global-norm clip, then each param group's LR from its schedule, then
-    the torch optimizer's update: the order of the JAX package's optax
-    chain."""
+    """Global-norm clip of each param group, then each group's LR from its
+    schedule, then the torch optimizer's update: the order of the JAX
+    package's optax chains, one a group under ``multi_transform``."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  schedules: Sequence[Schedule], clip_grad: float):
@@ -66,18 +66,29 @@ class ScheduledOptimizer:
 
     def step(self, step: int) -> torch.Tensor:
         """Apply optimizer step ``step`` (0-based) to the accumulated
-        ``.grad``s; returns the global gradient norm before clipping."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        if self.clip_grad > 0:
-            # optax.clip_by_global_norm: g * max_norm / norm when norm >= max_norm
-            scale = torch.where(norm < self.clip_grad, 1.0, self.clip_grad / norm)
-            torch._foreach_mul_(grads, scale)
+        ``.grad``s; returns the global norm of all the gradients before
+        clipping (``optax.global_norm(grads)``). Each group is clipped by the
+        global norm of its own gradients, as each chain of the JAX package's
+        ``multi_transform`` holds its own ``clip_by_global_norm``; parameters
+        without a gradient count for nothing."""
+        group_norms = []
         for group, schedule in zip(self.optimizer.param_groups, self.schedules):
+            grads = [p.grad for p in group["params"] if p.grad is not None]
+            if grads:
+                norm = torch.linalg.vector_norm(
+                    torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+                group_norms.append(norm)
+                if self.clip_grad > 0:
+                    # optax.clip_by_global_norm: g * max_norm / norm when
+                    # norm >= max_norm
+                    scale = torch.where(norm < self.clip_grad, 1.0,
+                                        self.clip_grad / norm)
+                    torch._foreach_mul_(grads, scale)
             group["lr"] = schedule(step)
         self.optimizer.step()
-        return norm
+        if not group_norms:
+            return torch.zeros(())
+        return torch.linalg.vector_norm(torch.stack(group_norms))
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -96,7 +107,8 @@ def build_optimizer(params_cfg, model: torch.nn.Module, total_steps: int,
       * Adam, or AdamW (decoupled decay) for ``optimizer='adamw'`` or Adam
         with ``weight_decay > 0``; SGD with coupled decay (``g + wd * p``),
         which never becomes AdamW;
-      * global-norm gradient clipping by ``clip_grad`` (<= 0 disables);
+      * global-norm gradient clipping by ``clip_grad`` (<= 0 disables), each
+        param group by its own norm;
       * cosine warmup schedule from ``lr`` / ``warmup_steps_pct`` down to
         ``lr / 100``;
       * parameters whose top-level name starts with one of

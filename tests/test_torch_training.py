@@ -177,15 +177,24 @@ class _Toy(torch.nn.Module):
     dict(optimizer="Adam", weight_decay=0.1, clip_grad=-1),  # -> AdamW
     dict(optimizer="AdamW", weight_decay=0.01, clip_grad=1.0, dec_lr=3e-3),
     dict(optimizer="SGD", weight_decay=0.5),  # coupled decay, not AdamW
+    # STEVE's two groups with the clip acting on every step: each group's
+    # gradients scaled by its own U(0.1, 3), so each group's own norm (JAX)
+    # and the joint norm clip differently
+    dict(optimizer="Adam", lr=1e-4, dec_lr=3e-4, clip_grad=0.05,
+         warmup_steps_pct=0.05, steps=20, group_scale=(0.1, 3.0)),
 ])
 def test_optimizer_stack_matches_optax(opt):
     """Same params and gradient sequence: the port's clip -> schedule ->
     update equals the JAX package's optax chain at every step, so the LR at
-    every step of the horizon is JAX's cosine_annealing_warmup."""
+    every step of the horizon is JAX's cosine_annealing_warmup; with
+    ``dec_lr`` each group is clipped by its own norm, and the returned (and
+    logged) norm is that of all the gradients."""
     from slotformer_tpu.runtime.schedules import build_optimizer as jax_build
 
-    cfg = BaseParams(lr=1e-2, warmup_steps_pct=0.25, **opt)
-    steps = 8
+    opt = dict(opt)
+    steps = opt.pop("steps", 8)
+    group_scale = opt.pop("group_scale", None)
+    cfg = BaseParams(**{"lr": 1e-2, "warmup_steps_pct": 0.25, **opt})
     r = np.random.default_rng(0)
     p0 = {"w": r.standard_normal((3, 4)).astype(np.float32),
           "b": r.standard_normal(4).astype(np.float32),
@@ -200,6 +209,10 @@ def test_optimizer_stack_matches_optax(opt):
     for step in range(steps):
         grads = {k: (r.standard_normal(v.shape) * 0.2).astype(np.float32)
                  for k, v in p0.items()}
+        if group_scale is not None:
+            main, dec = r.uniform(*group_scale, size=2).astype(np.float32)
+            grads = {k: g * (dec if k == "trans_decoder" else main)
+                     for k, g in grads.items()}
         updates, state = tx.update(grads, state, jp)
         jp = optax.apply_updates(jp, updates)
         for name, p in toy.named_parameters():
