@@ -15,7 +15,8 @@ exits non-zero:
   3. kernel  - kernel K1 against its plain PyTorch version on the card at the
                CLEVRER extraction shape, a ragged N, S=8, the training
                batch (B=64), the STEVE extraction shape (B=8, N=4096,
-               D=192, S=6, H=384) and STEVE's training batch (B=48); a
+               D=192, S=6, H=384), STEVE's training batch (B=48) and OBJ3D
+               SAVi's training batch (B=64, D=128, S=6, H=256); a
                second call must give the same bits; times
                both (K1 on weights packed beforehand, as the model calls
                it, and with the packing inside every call), K1 also with k
@@ -43,7 +44,8 @@ exits non-zero:
                runs) for one epoch at B=64, checking the K1 launch count,
                finite losses and a checkpoint that reloads; then steps/s and
                a profiled step (forward/backward/optimizer split, the
-               device idle share, K1 forward and backward shares).
+               device idle share, K1 forward and backward shares). Its
+               checkpoint encodes the videos of ``vqa``.
   7. rollout - ``SlotFormer.rollout(decode=True)`` at the full-width
                ``slotformer_clevrer`` config, B=16, 6 burn-in + 48 rollout
                steps, decoded to 64x64 (the shape ``bench.py`` times), then
@@ -75,21 +77,60 @@ exits non-zero:
                untrained; one ``pred_eval_step`` on the card against the
                same call on the CPU; rollout frames/s with and without the
                metrics.
- 11. physion_tree - a mini Physion tree in a temporary directory: frame
+ 11. vqa     - the Aloe VQA head on CLEVRER-shaped data: 12 synthetic
+               128-frame 64x64 videos encoded through K1 by the StoSAVi
+               ``train`` trained, extended to 160 frames by
+               ``cli.rollout_slots --task clevrer`` on the SlotFormer
+               ``train_slotformer`` trained, question files of vocab words
+               and every question type; then for both shipped configs
+               (``aloe_clevrer_params``, ground-truth slots, and its
+               ``-rollout`` twin): one B=2 step card against CPU with
+               dropout off; ``cli.train.run`` at full width (12 layers,
+               d144, 208 tokens) for one epoch of 3 steps at B=256 rows with
+               ``VQAMethod``'s question-level validation; steps/s, a
+               profiled step and which attention back ends take its call
+               (head width 18, a key-padding mask, float32);
+               ``cli.test_clevrer_vqa`` on the test split (every question
+               answered) and on val (agreeing with the trainer's
+               validation); eval rows/s.
+ 12. obj3d_tree - a mini OBJ3D tree in a temporary directory, the working
+               directory of the OBJ3D phases: 12 + 24 + 2 train/val/test
+               videos of 51 64x64 PNG frames ``test_{i}.png``.
+ 13. train_savi_obj3d - the deterministic SAVi of ``savi_obj3d_params`` (6
+               slots x 128, an LSTM-wrapped 2-layer transformer predictor,
+               ``kld_method='none'``, B=64): one B=2 step card against CPU
+               and against K1's plain version; ``cli.train.run`` for one
+               epoch of 8 steps: K1 launches, finite losses, a zero KLD, a
+               checkpoint that reloads (linked as
+               ``pretrained/savi_obj3d_params/model.pth``); steps/s and a
+               profiled step.
+ 14. obj3d_slots - that SAVi through ``extract_video_slots`` over every
+               train and val video, written as ``data/OBJ3D/obj3d_slots.pkl``;
+               K1 launches.
+ 15. train_slotformer_obj3d - the full-width ``slotformer_obj3d_params``
+               SlotFormer (d128, 4 layers, 6 + 10 frames, B=128) on those
+               slots, the decoder grafted through the config's own
+               ``dec_ckp_path``: one B=2 step card against CPU;
+               ``cli.train.run`` for one epoch of 3 steps, the decoder
+               bit-frozen, a checkpoint that reloads; steps/s.
+ 16. test_vp_obj3d - ``cli.test_vp`` on that SlotFormer: 6 + 44 frames of
+               every val video, batch 12, no masks; every metric finite, the
+               mask metrics unscored; frames/s.
+ 17. physion_tree - a mini Physion tree in a temporary directory: frame
                folders of 150 128x128 frames rendered by the synthetic
                renderer (6 + 2 training videos, 2 + 2 readout videos) and
                split files, ``datasets.physion._SPLIT_DIR`` pointed at them.
- 12. train_dvae - the full-width ``dvae_physion_params`` dVAE (vocab 4096,
+ 18. train_dvae - the full-width ``dvae_physion_params`` dVAE (vocab 4096,
                B=64) trained by ``cli.train.run`` for one epoch (14 steps
                over 6 x 150 frames): one B=2 step card against CPU on the
                same gumbel uniforms (losses, every gradient); tau along its
                schedule in the log, the sample video, a checkpoint that
                reloads; steps/s. Its checkpoint is the dVAE of every later
                phase.
- 13. tokenize - that dVAE through ``cli.tokenize_images``: every token file
+ 19. tokenize - that dVAE through ``cli.tokenize_images``: every token file
                [150, 1024] int32 in range; the dVAE card against CPU on 4
                frames (logits, ids up to a tie); frames/s.
- 14. train_steve - the full-width ``steve_physion_params`` STEVE (6 slots x
+ 20. train_steve - the full-width ``steve_physion_params`` STEVE (6 slots x
                192, B=48, 6-frame clips, ``dec_lr``, clip 0.05) trained by
                ``cli.train.run`` for one epoch (18 steps) under bf16
                autocast on the loader's tokens, the dVAE grafted from its
@@ -103,13 +144,13 @@ exits non-zero:
                backward, optimizer, device idle); K1's gradient at the
                training shape (48, 4096, 192, 6, 384) against plain
                autograd.
- 15. steve_extract - that STEVE through ``cli.extract_slots`` on the
+ 21. steve_extract - that STEVE through ``cli.extract_slots`` on the
                training and readout subsets: K1 launched once per frame
                step per batch, the files and their ``{subset}_slots.pkl``
                links; one 6-frame clip at B=2 card against CPU and against
                K1's plain version on the card (slots and masks, per frame);
                frames/s and K1's share of the device trace.
- 16. train_steve_slotformer - the full-width ``slotformer_physion_params``
+ 22. train_steve_slotformer - the full-width ``slotformer_physion_params``
                STEVESlotFormer (d256, 8 layers, 15 + 10 frames at frame
                offset 3, B=128) trained by ``cli.train.run`` for one epoch
                on the training subset's slots, STEVE's token decoder and
@@ -117,18 +158,19 @@ exits non-zero:
                CPU; the grafted subtrees bit-frozen, the rollouter moved,
                the config's (absent) loss-decay ramp, a checkpoint that
                reloads; steps/s.
- 17. steve_rollout - that STEVESlotFormer through ``cli.rollout_slots
+ 23. steve_rollout - that STEVESlotFormer through ``cli.rollout_slots
                --task physion --subset readout``, 45 -> 150 frames; one
                video card against CPU.
- 18. steve_decode - ``STEVESlotFormer.rollout(decode=True)`` for 2 frames of
+ 24. steve_decode - ``STEVESlotFormer.rollout(decode=True)`` for 2 frames of
                2 videos: 1024 KV-cached token steps an image, then the dVAE;
                ms per image and per token step, the device idle share; one
                image card against CPU (teacher-forced logits, generated ids
                up to a tie, hard and soft images).
 
-The Physion phases run in the temporary directory of their tree, where each
-training phase links its checkpoint as ``pretrained/<run>/model.pth``, the
-path the next stage's shipped config names.
+The OBJ3D and Physion phases run in the temporary directory of their tree,
+where each training phase links its checkpoint as
+``pretrained/<run>/model.pth``, the path the next stage's shipped config
+names.
 
 Every phase's seconds follow it on a line of their own.
 
@@ -142,9 +184,10 @@ its launches through its entry point; every number measured in this run but
 ``{"ok": true, "device": {...}}``. K1's ``launches_by_path`` also counts the
 encode of the slots file that SlotFormer trains on and ``test_vp`` evaluates
 (SlotFormer itself launches no kernel of this repository: it reads K1's
-slots) and STEVE's training and extraction; its ``steve_case`` holds K1 at
-the STEVE extraction shape and ``steve_train_case`` at STEVE's training
-shape, with its gradient check. Without a CUDA device it exits 1 and prints
+slots), STEVE's training and extraction, OBJ3D SAVi's training and
+extraction and the VQA phase's extraction; its ``steve_case`` holds K1 at
+the STEVE extraction shape, ``steve_train_case`` at STEVE's training
+shape, with its gradient check, and ``obj3d_case`` at OBJ3D's. Without a CUDA device it exits 1 and prints
 no result.
 """
 
@@ -199,6 +242,9 @@ STEVE_K1_SHAPE = (8, 4096, 192, 6, 384)
 # through plain autograd differentiate the same plain version on the same
 # inputs: only the order of the card's reductions may differ.
 STEVE_TRAIN_K1_SHAPE = (48, 4096, 192, 6, 384)
+# OBJ3D SAVi training: K1 at savi_obj3d_params' batch, (64, 4096, 128, 6,
+# 256): 6 slots beside D=128's resident slot-side weights
+OBJ3D_K1_SHAPE = (64, 4096, 128, 6, 256)
 K1_GRAD_RTOL = 1e-5
 # STEVE extraction, card against CPU on one 6-frame clip: the slots pass 6
 # recurrent frame steps (an LSTM-wrapped 2-layer predictor, then K1) at
@@ -351,7 +397,8 @@ def phase_kernel():
                                  ("eight_slots", (4, 4096, 128, 8, 256)),
                                  ("train_batch", (64, 4096, 128, 7, 256)),
                                  ("steve", STEVE_K1_SHAPE),
-                                 ("steve_train", STEVE_TRAIN_K1_SHAPE)):
+                                 ("steve_train", STEVE_TRAIN_K1_SHAPE),
+                                 ("obj3d", OBJ3D_K1_SHAPE)):
         k, v, slots, wp = k1_inputs(B, N, D, S, H, seed=len(results))
         args = (k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
         got = k1.fused_slot_attention(*args)
@@ -372,7 +419,7 @@ def phase_kernel():
             ("fused_slot_attention_sweep_kernel", "fused_slot_attention_slot_kernel"))
         bound_ms, bound_by = k1_bound(B, N, D, S, H, 2)
         extra = {}
-        if tag in ("clevrer", "train_batch"):
+        if tag in ("clevrer", "train_batch", "obj3d"):
             # k and v cold in the 50 MB L2, as a caller that has just produced
             # the k and v of many frames finds them: rotate over input sets
             # of more than 100 MB in all
@@ -605,19 +652,16 @@ def _steady_steps_per_s(method, n_steps=5):
     return n_steps / dt, batch
 
 
-def phase_train():
-    import tempfile
-    from unittest import mock
-
+def phase_train(ckp):
+    """StoSAVi training at the full ``stosavi_clevrer`` width; the fit's
+    checkpoints go to ``ckp``. Returns (K1 launches of the fit, its last
+    checkpoint)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
 
     from slotformer_tpu_torch.cli import train as train_cli
     from slotformer_tpu_torch.datasets import build_dataset
     from slotformer_tpu_torch.kernels import slot_attention as k1
-    from slotformer_tpu_torch.models import build_model
-    from slotformer_tpu_torch.models import slot_attention as sa_module
     from slotformer_tpu_torch.runtime import latest_checkpoint, load_params
 
     params = load_params(os.path.join(CONFIGS, "stosavi_clevrer_params.py"))
@@ -627,7 +671,6 @@ def phase_train():
     params.num_videos_train = 32
     params.max_epochs = 1
     params.print_iter = 1  # a log line per step: the losses checked below
-    weights = params.loss_weights()
     T = params.n_sample_frames
 
     # (a)/(b) one train step at B=2: card vs CPU, and K1 vs its plain version
@@ -635,97 +678,34 @@ def phase_train():
     img = np.stack([train_set[i]["img"] for i in (0, 100)])
     S, D = params.slot_dict["num_slots"], params.slot_dict["slot_size"]
     eps = np.random.default_rng(0).standard_normal((2, T, S, D)).astype(np.float32)
-    torch.manual_seed(2)
-    gpu = build_model(params, device="cuda")
-    cpu = build_model(params, device="cpu")
-    cpu.load_state_dict(gpu.state_dict())
-
-    def one_step(model, device):
-        model.train()
-        model.zero_grad(set_to_none=True)
-        losses = model.train_loss({"img": torch.from_numpy(img).to(device),
-                                   "sample_eps": torch.from_numpy(eps).to(device)})
-        sum(weights.get(n, 1.0) * v for n, v in losses.items()).backward()
-        return ({n: v.item() for n, v in losses.items()},
-                {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
-
-    l_cpu, g_cpu = one_step(cpu, "cpu")
-    l_gpu, g_gpu = one_step(gpu, "cuda")
-    with mock.patch.object(sa_module, "fused_slot_attention",
-                           k1.fused_slot_attention_plain):
-        l_plain, g_plain = one_step(gpu, "cuda")
-    loss_err_cpu = max(abs(l_gpu[n] / l_cpu[n] - 1) for n in l_cpu)
-    loss_err_plain = max(abs(l_gpu[n] / l_plain[n] - 1) for n in l_plain)
-    grad_err_cpu, worst_cpu = _grad_errors(g_gpu, g_cpu)
-    grad_err_plain, worst_plain = _grad_errors(g_gpu, g_plain)
-    step_ok = (max(loss_err_cpu, loss_err_plain) <= TRAIN_LOSS_RTOL
-               and max(grad_err_cpu, grad_err_plain) <= TRAIN_GRAD_RTOL)
-    emit(phase="train", check="one_step", batch=2, losses_card=l_gpu,
-         losses_cpu=l_cpu, loss_rel_err_vs_cpu=loss_err_cpu,
-         loss_rel_err_vs_plain_k1=loss_err_plain,
-         grad_rel_err_vs_cpu=grad_err_cpu, worst_param_vs_cpu=worst_cpu,
-         grad_rel_err_vs_plain_k1=grad_err_plain,
-         worst_param_vs_plain_k1=worst_plain, n_params=len(g_cpu),
-         tol_loss_rtol=TRAIN_LOSS_RTOL, tol_grad_rel=TRAIN_GRAD_RTOL,
-         ok=step_ok)
-    if not step_ok:
-        raise AssertionError("train step: card disagrees with the CPU or "
-                             "with the plain K1")
-    del gpu, cpu
+    _k1_step_check("train", params, {"img": torch.from_numpy(img),
+                                     "sample_eps": torch.from_numpy(eps)}, seed=2)
 
     # (c) fit at B=64 through the CLI's code
-    with tempfile.TemporaryDirectory() as ckp:
-        params.seed = 0
-        k1.LAUNCHES = 0
-        method, fit_s = wall_s(lambda: train_cli.run(
-            params, ckp, device="cuda", san_check_val_step=1))
-        launches, steps = k1.LAUNCHES, method.it
-        val_batches = 1 + len(method.val_loader)  # sanity check + epoch end
-        # the decomposition video of the epoch's end encodes n_samples whole
-        # val videos, one K1 call a frame
-        val_set = method.val_loader.dataset
-        sampled = min(int(params.get("n_samples", 0)), val_set.num_videos)
-        sampled_frames = sampled * len(range(0, val_set.video_len,
-                                             val_set.frame_offset))
-        expected = T * (steps + val_batches) + sampled_frames
-        log, train_log = _read_log(ckp)
-        finite = _finite(log)
-        last = latest_checkpoint(ckp)
-        reloaded = _reloads(method, params, ckp)
+    params.seed = 0
+    k1.LAUNCHES = 0
+    method, fit_s = wall_s(lambda: train_cli.run(
+        params, ckp, device=DEVICE, san_check_val_step=1))
+    launches, steps = k1.LAUNCHES, method.it
+    val_batches = 1 + len(method.val_loader)  # sanity check + epoch end
+    # the decomposition video of the epoch's end encodes n_samples whole
+    # val videos, one K1 call a frame
+    val_set = method.val_loader.dataset
+    sampled = min(int(params.get("n_samples", 0)), val_set.num_videos)
+    sampled_frames = sampled * len(range(0, val_set.video_len,
+                                         val_set.frame_offset))
+    expected = T * (steps + val_batches) + sampled_frames
+    log, train_log = _read_log(ckp)
+    finite = _finite(log)
+    last = latest_checkpoint(ckp)
+    reloaded = _reloads(method, params, ckp)
 
-        # steady-state steps/s, then one profiled step
-        steps_per_s, batch = _steady_steps_per_s(method)
-        model, opt = method.model, method.optimizer
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        with torch.profiler.profile(activities=acts) as prof:
-            model.train()
-            db = method._to_device(batch)
-            ev[0].record()
-            losses = model.train_loss(db, generator=method.generator)
-            total = sum(weights.get(n, 1.0) * v for n, v in losses.items())
-            ev[1].record()
-            total.backward()
-            ev[2].record()
-            opt.step(method.it)
-            opt.zero_grad()
-            ev[3].record()
-            torch.cuda.synchronize()
-        fwd_ms, bwd_ms, opt_ms = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
-        # device time of the kernels themselves (the CPU ops that launched
-        # them carry the same time and are left out)
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        k1_ms = sum(e.self_device_time_total for e in kernels
-                    if "fused_slot_attention_" in e.key) / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-        top_kernels = [(e.key[:80], e.count, e.self_device_time_total / 1e3)
-                       for e in top]
+    # steady-state steps/s, then one profiled step
+    steps_per_s, batch = _steady_steps_per_s(method)
+    prof = _profiled_step(method, batch)
     ok = (steps == 7 and launches == expected and finite and reloaded
           and last is not None and last.endswith(f"model_{steps}.pth"))
-    step_ms = fwd_ms + bwd_ms + opt_ms
+    step_ms = prof["forward_ms"] + prof["backward_ms"] + prof["optimizer_ms"]
 
     # K1's backward (autograd of its plain version) at the training shape,
     # once per frame step of the train step
@@ -746,20 +726,12 @@ def phase_train():
          finite=finite, checkpoint=os.path.basename(last),
          reloaded=reloaded, last_train=train_log[-1] if train_log else None,
          steps_per_s=steps_per_s, frames_per_s=steps_per_s * 64 * T,
-         profiled_step=dict(forward_ms=fwd_ms, backward_ms=bwd_ms,
-                            optimizer_ms=opt_ms,
-                            backward_share=bwd_ms / step_ms,
-                            device_busy_ms=device_ms,
-                            device_idle_share=1 - device_ms / step_ms,
-                            k1_forward_kernel_ms=k1_ms,
-                            k1_forward_share=k1_ms / step_ms,
-                            k1_backward_ms=T * k1_bwd_ms,
-                            k1_backward_share=T * k1_bwd_ms / step_ms,
-                            top_kernels_name_count_ms=top_kernels),
+         profiled_step=dict(prof, k1_backward_ms=T * k1_bwd_ms,
+                            k1_backward_share=T * k1_bwd_ms / step_ms),
          ok=ok)
     if not ok:
         raise AssertionError("training check failed")
-    return launches
+    return launches, last
 
 
 def phase_rollout(slots_dict):
@@ -1200,13 +1172,26 @@ def phase_test_vp(slots_path, weight, workdir):
         raise AssertionError("test_vp check failed")
 
 
-# ------------------------------------------------------- the STEVE family
+# ------------------------------------------------------- OBJ3D and Aloe VQA
+
+# the OBJ3D tree: synthetic 64x64 videos of video_len + 1 = 51 PNG frames
+# (get_video reads 51); 12 training videos give 8 SAVi steps of 64 clips
+# (45 starts a video) and 3 SlotFormer steps of 128 (35 starts a video); 24
+# val videos give test_vp 2 batches of 12
+OBJ3D = dict(video_len=50, train=12, val=24, test=2, extract_batch=8,
+             chunk_len=17)
+# the Aloe phase: 8 + 2 + 2 CLEVRER-shaped 128-frame videos, each scene 40
+# descriptive and 20 multiple-choice questions of 4 choices (120 rows)
+VQA = dict(video_len=128, train=8, val=2, test=2, extract_batch=8,
+           chunk_len=32, descriptive=40, multiple_choice=20, choices=4)
+# One Aloe train step at B=2 card against CPU, float32 with dropout off: 12
+# transformer layers over 208 tokens, and back (as TRAIN_*).
+VQA_LOSS_RTOL, VQA_GRAD_RTOL = 1e-4, 1e-3
 
 
-def physion_params(workdir, name, **over):
-    """The shipped Physion config ``name`` with its data under ``workdir``,
-    written as ``workdir/<name>.py`` (the dVAE's file name names its token
-    tree)."""
+def derived_params(workdir, name, **over):
+    """The shipped config ``name`` with ``over`` set, written as
+    ``workdir/<name>.py`` (a config's file name names its runs)."""
     from slotformer_tpu_torch.runtime import load_params
 
     path = os.path.join(workdir, f"{name}.py")
@@ -1215,11 +1200,622 @@ def physion_params(workdir, name, **over):
         f.write("from slotformer_tpu_torch.runtime import load_params\n\n"
                 "Shipped = type(load_params("
                 f"{os.path.join(CONFIGS, name + '.py')!r}))\n\n\n"
-                "class SlotFormerParams(Shipped):\n"
-                f"    data_root = {os.path.join(workdir, 'data', 'Physion')!r}\n"
-                f"    video_len = {PHYSION['video_len']}\n"
-                "    num_workers = 4\n" + lines)
+                "class SlotFormerParams(Shipped):\n" + (lines or "    pass\n"))
     return path, load_params(path)
+
+
+def _dropout_off(model):
+    import torch
+
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+        elif isinstance(getattr(mod, "dropout", None), float):
+            mod.dropout = 0.0  # attention dropout
+
+
+def _k1_step_check(phase, params, batch, seed, prepare=None):
+    """One float32 train step at B=2 of a model that runs K1: the card
+    against the CPU and against the card with K1 swapped for its plain
+    version (losses, every gradient), in training mode with every dropout
+    at 0 (a cuDNN LSTM differentiates only in training mode). ``prepare``
+    grafts and freezes what the trainer would, on each model."""
+    from unittest import mock
+
+    import torch
+
+    from slotformer_tpu_torch.kernels import slot_attention as k1
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.models import slot_attention as sa_module
+
+    weights = params.loss_weights()
+    torch.manual_seed(seed)
+    gpu = build_model(params, device=DEVICE)
+    if prepare:
+        prepare(gpu)
+    cpu = build_model(params, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    for m in (gpu, cpu):
+        if prepare:
+            prepare(m)
+        m.train()
+        _dropout_off(m)
+
+    def one_step(model, device):
+        model.zero_grad(set_to_none=True)
+        losses = model.train_loss({k: v.to(device) for k, v in batch.items()})
+        sum(weights.get(n, 1.0) * v for n, v in losses.items()).backward()
+        return ({n: v.item() for n, v in losses.items()},
+                {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                 if p.grad is not None})
+
+    l_cpu, g_cpu = one_step(cpu, "cpu")
+    l_gpu, g_gpu = one_step(gpu, DEVICE)
+    with mock.patch.object(sa_module, "fused_slot_attention",
+                           k1.fused_slot_attention_plain):
+        l_plain, g_plain = one_step(gpu, DEVICE)
+    rel = lambda a, b: abs(a / b - 1) if b else abs(a - b)  # noqa: E731
+    loss_err_cpu = max(rel(l_gpu[n], l_cpu[n]) for n in l_cpu)
+    loss_err_plain = max(rel(l_gpu[n], l_plain[n]) for n in l_plain)
+    grad_err_cpu, worst_cpu = _grad_errors(g_gpu, g_cpu)
+    grad_err_plain, worst_plain = _grad_errors(g_gpu, g_plain)
+    ok = (max(loss_err_cpu, loss_err_plain) <= TRAIN_LOSS_RTOL
+          and max(grad_err_cpu, grad_err_plain) <= TRAIN_GRAD_RTOL
+          and len(g_cpu) == len(g_gpu) > 0)
+    emit(phase=phase, check="one_step", batch=2, losses_card=l_gpu,
+         losses_cpu=l_cpu, loss_rel_err_vs_cpu=loss_err_cpu,
+         loss_rel_err_vs_plain_k1=loss_err_plain,
+         grad_rel_err_vs_cpu=grad_err_cpu, worst_param_vs_cpu=worst_cpu,
+         grad_rel_err_vs_plain_k1=grad_err_plain,
+         worst_param_vs_plain_k1=worst_plain, n_params=len(g_cpu),
+         tol_loss_rtol=TRAIN_LOSS_RTOL, tol_grad_rel=TRAIN_GRAD_RTOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"{phase} train step: the card disagrees with "
+                             "the CPU or with the plain K1")
+
+
+def _profiled_step(method, batch):
+    """One train step of ``method`` on ``batch`` under ``torch.profiler``:
+    forward, backward and optimizer ms (CUDA events), the device's busy
+    time, K1's kernels and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+
+    weights = method.params.loss_weights()
+    model, opt = method.model, method.optimizer
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.profiler.profile(activities=acts) as prof:
+        model.train()
+        db = method._to_device(batch)
+        ev[0].record()
+        losses = model.train_loss(db, generator=method.generator)
+        total = sum(weights.get(n, 1.0) * v for n, v in losses.items())
+        ev[1].record()
+        total.backward()
+        ev[2].record()
+        opt.step(method.it)
+        opt.zero_grad()
+        ev[3].record()
+        torch.cuda.synchronize()
+    fwd_ms, bwd_ms, opt_ms = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    step_ms = fwd_ms + bwd_ms + opt_ms
+    # device time of the kernels themselves (the CPU ops that launched them
+    # carry the same time and are left out)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1_ms = sum(e.self_device_time_total for e in kernels
+                if "fused_slot_attention_" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(forward_ms=fwd_ms, backward_ms=bwd_ms, optimizer_ms=opt_ms,
+                backward_share=bwd_ms / step_ms, device_busy_ms=device_ms,
+                device_idle_share=1 - device_ms / step_ms,
+                k1_forward_kernel_ms=k1_ms, k1_forward_share=k1_ms / step_ms,
+                top_kernels_name_count_ms=[
+                    (e.key[:80], e.count, e.self_device_time_total / 1e3)
+                    for e in top])
+
+
+def _device_busy(fn):
+    """(host ms of ``fn`` under ``torch.profiler``, ending in a
+    synchronisation; ms of device kernels in it)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, dt = wall_s(fn)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return 1e3 * dt, busy
+
+
+def phase_obj3d_tree(workdir):
+    """A mini OBJ3D tree under ``workdir/data/OBJ3D``: ``<split>/<video>/
+    test_{1..51}.png``, 64x64 frames of the synthetic renderer."""
+    import numpy as np
+    from PIL import Image
+
+    from slotformer_tpu_torch.datasets.synthetic import _render_video
+
+    t0 = time.perf_counter()
+    T, n_frames, seed = OBJ3D["video_len"] + 1, 0, 100
+    for split in ("train", "val", "test"):
+        for i in range(OBJ3D[split]):
+            folder = os.path.join(workdir, "data", "OBJ3D", split, f"{split}_{i:03d}")
+            os.makedirs(folder)
+            video, _ = _render_video(seed, T, 64, 5)
+            seed += 1
+            for t, frame in enumerate(video):
+                Image.fromarray(((frame + 1) * 127.5).round().astype(np.uint8)).save(
+                    os.path.join(folder, f"test_{t + 1}.png"))
+            n_frames += T
+    emit(phase="obj3d_tree", videos={s: OBJ3D[s] for s in ("train", "val", "test")},
+         frames=n_frames, resolution=[64, 64], seconds=time.perf_counter() - t0,
+         ok=True)
+
+
+def phase_train_savi_obj3d(workdir):
+    """The deterministic SAVi of ``savi_obj3d_params`` (6 slots x 128, a
+    2-layer transformer predictor in an LSTM, ``kld_method='none'``, B=64
+    clips of 6 frames) on the tree: one B=2 step card against CPU and
+    against the plain K1; then ``cli.train.run`` for one epoch. Its
+    checkpoint becomes ``pretrained/savi_obj3d_params/model.pth``, the
+    decoder the OBJ3D SlotFormer config grafts. Returns (checkpoint, K1
+    launches of the fit)."""
+    import numpy as np
+    import torch
+
+    from slotformer_tpu_torch.cli import train as train_cli
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.kernels import slot_attention as k1
+    from slotformer_tpu_torch.runtime import latest_checkpoint
+
+    _, params = derived_params(workdir, "savi_obj3d_params", max_epochs=1,
+                               eval_interval=1, print_iter=1, num_workers=4)
+    T, B = params.n_sample_frames, params.train_batch_size
+    train_set, val_set = build_dataset(params)
+    batch = {"img": torch.from_numpy(np.stack(
+        [train_set[i]["img"] for i in (0, len(train_set) // 2)]))}
+    _k1_step_check("train_savi_obj3d", params, batch, seed=11)
+
+    ckp = os.path.join(workdir, "ckpts", "savi_obj3d_params")
+    params.seed = 0
+    k1.LAUNCHES = 0
+    method, fit_s = wall_s(lambda: train_cli.run(
+        params, ckp, device=DEVICE, san_check_val_step=1))
+    launches, steps = k1.LAUNCHES, method.it
+    val_batches = 1 + len(method.val_loader)  # sanity check + epoch end
+    # the decomposition video encodes n_samples whole val videos of
+    # video_len + 1 frames, one K1 call a frame
+    sampled = min(int(params.n_samples), len(val_set.files))
+    expected = T * (steps + val_batches) + sampled * (OBJ3D["video_len"] + 1)
+    log, train_log = _read_log(ckp)
+    last = latest_checkpoint(ckp)
+    reloaded = _reloads(method, params, ckp)
+    _link_pretrained("savi_obj3d_params", last)
+    steps_per_s, batch = _steady_steps_per_s(method)
+    prof = _profiled_step(method, batch)
+    ok = (steps == OBJ3D["train"] * 45 // B and launches == expected
+          and _finite(log) and reloaded and last.endswith(f"model_{steps}.pth")
+          and all(r["kld_loss"] == 0.0 for r in train_log))
+    emit(phase="train_savi_obj3d", check="fit", config="savi_obj3d_params",
+         batch=B, frames_per_clip=T, steps=steps, fit_seconds=fit_s,
+         k1_launches=launches, k1_launches_expected=expected,
+         val_batches=val_batches, finite=_finite(log),
+         checkpoint=os.path.basename(last), reloaded=reloaded,
+         last_train=train_log[-1] if train_log else None,
+         steps_per_s=steps_per_s, frames_per_s=steps_per_s * B * T,
+         profiled_step=prof, ok=ok)
+    if not ok:
+        raise AssertionError("OBJ3D SAVi training check failed")
+    return last, launches
+
+
+def phase_obj3d_slots(workdir, savi_ckp):
+    """The trained OBJ3D SAVi over every train and val video through
+    ``extract_video_slots`` (K1 once a frame step a batch), written as
+    ``data/OBJ3D/obj3d_slots.pkl``, the shipped config's ``slots_root``.
+    Returns the K1 launches."""
+    import numpy as np
+
+    from slotformer_tpu_torch.cli.extract_slots import extract_video_slots
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.kernels import slot_attention as k1
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import dump_obj, load_checkpoint
+
+    _, params = derived_params(workdir, "savi_obj3d_params")
+    model = build_model(params, device=DEVICE)
+    model.load_state_dict(load_checkpoint(savi_ckp)["state_dict"])
+    sets = dict(zip(("train", "val"), build_dataset(params)))
+    bs, T = OBJ3D["extract_batch"], OBJ3D["video_len"] + 1
+    # the host's share: reading every video's PNG frames, as the
+    # extraction reads them
+    _, read_s = wall_s(lambda: [ds.get_video(i) for ds in sets.values()
+                                for i in range(len(ds.files))])
+    k1.LAUNCHES = 0
+    slots, dt = wall_s(lambda: {
+        split: extract_video_slots(model, ds, bs, OBJ3D["chunk_len"])
+        for split, ds in sets.items()})
+    launches = k1.LAUNCHES
+    dump_obj(slots, os.path.join(workdir, "data", "OBJ3D", "obj3d_slots.pkl"))
+    # the device's idle share over one batch of 8 val videos
+    val8 = build_dataset(params, val_only=True)
+    val8.files = val8.files[:bs]
+    prof_ms, busy_ms = _device_busy(lambda: extract_video_slots(
+        model, val8, bs, OBJ3D["chunk_len"]))
+    frame_steps = sum(-(-len(ds.files) // bs) for ds in sets.values()) * T
+    S, D = params.slot_dict["num_slots"], params.slot_dict["slot_size"]
+    shapes_ok = all(s.shape == (T, S, D) and s.dtype == np.float32
+                    and np.isfinite(s).all()
+                    for v in slots.values() for s in v.values())
+    n_videos = sum(len(v) for v in slots.values())
+    ok = (shapes_ok and launches == frame_steps
+          and {k: len(v) for k, v in slots.items()}
+          == {"train": OBJ3D["train"], "val": OBJ3D["val"]})
+    emit(phase="obj3d_slots", config="savi_obj3d_params", videos=n_videos,
+         frames=T, chunk_len=OBJ3D["chunk_len"], seconds=dt,
+         frames_per_s=n_videos * T / dt, png_read_seconds=read_s,
+         one_batch=dict(ms=prof_ms, device_busy_ms=busy_ms,
+                        device_idle_share=1 - busy_ms / prof_ms),
+         k1_launches=launches,
+         frame_steps=frame_steps, shapes_ok=shapes_ok, ok=ok)
+    if not ok:
+        raise AssertionError("OBJ3D slot extraction check failed")
+    return launches
+
+
+def phase_train_slotformer_obj3d(workdir, savi_ckp):
+    """SlotFormer at the full ``slotformer_obj3d_params`` width (6 slots x
+    128, d_model 128, 4 layers, 8 heads, 6 + 10 frames at offset 1, B=128)
+    on the extracted slots, the decoder grafted from the SAVi the phase
+    before trained through the config's own ``dec_ckp_path``: one B=2 step
+    card against CPU; ``cli.train.run`` for one epoch. Returns the
+    checkpoint's path."""
+    import numpy as np
+    import torch
+
+    from slotformer_tpu_torch.cli import train as train_cli
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import graft, latest_checkpoint, load_checkpoint
+
+    _, params = derived_params(workdir, "slotformer_obj3d_params", max_epochs=1,
+                               eval_interval=1, print_iter=1, num_workers=4)
+    B, weights = params.train_batch_size, params.loss_weights()
+    savi_sd = load_checkpoint(savi_ckp)["state_dict"]
+    train_set, _ = build_dataset(params)
+    items = [train_set[i] for i in (0, len(train_set) // 2)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in ("slots", "img")}
+    torch.manual_seed(12)
+    gpu = build_model(params, device=DEVICE)
+    gpu.load_state_dict(graft(gpu.state_dict(), savi_sd,
+                              ("decoder", "decoder_pos_embedding")))
+    cpu = build_model(params, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    for m in (gpu, cpu):
+        for n, p in m.named_parameters():
+            p.requires_grad_(not n.startswith("decoder"))
+    l_gpu, g_gpu, _ = _sf_step(gpu, {k: v.to(DEVICE) for k, v in batch.items()},
+                               weights)
+    l_cpu, g_cpu, _ = _sf_step(cpu, batch, weights)
+    loss_err = max(abs(l_gpu[n] / l_cpu[n] - 1) for n in l_cpu)
+    grad_err, worst = _grad_errors(g_gpu, g_cpu)
+    step_ok = (loss_err <= SF_LOSS_RTOL and grad_err <= SF_GRAD_RTOL
+               and len(g_gpu) == len(g_cpu) > 0)
+    emit(phase="train_slotformer_obj3d", check="one_step", batch=2,
+         losses_card=l_gpu, loss_rel_err_vs_cpu=loss_err,
+         grad_rel_err_vs_cpu=grad_err, worst_param=worst, n_grads=len(g_cpu),
+         tol_loss_rtol=SF_LOSS_RTOL, tol_grad_rel=SF_GRAD_RTOL, ok=step_ok)
+    if not step_ok:
+        raise AssertionError("OBJ3D SlotFormer train step: the card disagrees "
+                             "with the CPU")
+    del gpu, cpu
+
+    ckp = os.path.join(workdir, "ckpts", "slotformer_obj3d_params")
+    params.seed = 0
+    method, fit_s = wall_s(lambda: train_cli.run(
+        params, ckp, device=DEVICE, san_check_val_step=1))
+    model, steps = method.model, method.it
+    log, train_log = _read_log(ckp)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    dec_keys = [k for k in sd if k.startswith("decoder")]
+    frozen = len(dec_keys) > 0 and all(torch.equal(sd[k], savi_sd[k])
+                                       for k in dec_keys)
+    last = latest_checkpoint(ckp)
+    reloaded = _reloads(method, params, ckp)
+    steps_per_s, _ = _steady_steps_per_s(method)
+    ok = (steps == method.total_steps == OBJ3D["train"] * 35 // B
+          and _finite(log) and frozen and reloaded
+          and last.endswith(f"model_{steps}.pth"))
+    emit(phase="train_slotformer_obj3d", check="fit",
+         config="slotformer_obj3d_params", batch=B,
+         frames_per_clip=params.n_sample_frames, steps=steps,
+         fit_seconds=fit_s, finite=_finite(log), decoder_bit_frozen=frozen,
+         decoder_tensors=len(dec_keys), checkpoint=os.path.basename(last),
+         reloaded=reloaded, last_train=train_log[-1] if train_log else None,
+         steps_per_s=steps_per_s,
+         rollout_frames_per_s=steps_per_s * B * model.rollout_len, ok=ok)
+    if not ok:
+        raise AssertionError("OBJ3D SlotFormer training check failed")
+    return last
+
+
+def phase_test_vp_obj3d(workdir, weight):
+    """``cli.test_vp`` on the OBJ3D SlotFormer just trained: 6 burn-in + 44
+    rollout frames of every val video, batch 12, no masks (only the pixel
+    metrics are scored); every metric finite; frames/s."""
+    import numpy as np
+
+    from slotformer_tpu_torch.cli import test_vp
+
+    cfg, _ = derived_params(workdir, "slotformer_obj3d_params")
+    vis = os.path.join(workdir, "vis")
+    stats, dt = wall_s(lambda: test_vp.main(
+        ["--params", cfg, "--weight", weight, "--vis_dir", vis,
+         "--device", DEVICE]))
+    T_ro = OBJ3D["video_len"] - 6
+    results = stats["results"]
+    finite = (sorted(results) == sorted(test_vp.METRICS) and all(
+        v.shape == (T_ro,) and np.isfinite(v).all() for v in results.values()))
+    unscored = all(not results[m].any() for m in ("ari", "fari", "miou", "ar"))
+    files = sorted(os.listdir(stats["save_dir"]))
+    files_ok = (sum(f.endswith(".npy") for f in files) == 8
+                and [f for f in files if f.endswith(".mp4")]
+                == ["slotformer_obj3d_params.mp4"])
+    steady = stats["seconds_fwd"] + stats["seconds_metrics"]
+    ok = (finite and unscored and files_ok and stats["traj"]["batches"] == 0
+          and stats["steady_frames"] == (OBJ3D["val"] - 12) * T_ro)
+    emit(phase="test_vp_obj3d", config="slotformer_obj3d_params", batch=12,
+         history=6, rollout=T_ro, seconds=dt,
+         first_batch_seconds=stats["seconds_first_batch"],
+         steady_frames=stats["steady_frames"],
+         frames_per_s_with_metrics=stats["steady_frames"] / steady,
+         frames_per_s_forward_only=stats["steady_frames"] / stats["seconds_fwd"],
+         metrics_share=stats["seconds_metrics"] / steady,
+         means={k: float(v.mean()) for k, v in results.items()},
+         percept_dist_source=stats["percept_dist_source"], finite=finite,
+         mask_metrics_unscored=unscored, files_ok=files_ok, ok=ok)
+    if not ok:
+        raise AssertionError("OBJ3D test_vp check failed")
+
+
+def _vqa_questions(names, first_scene, seed):
+    """CLEVRER-format scenes over ``names``: descriptive questions with
+    answers, and explanatory, predictive and counterfactual questions with
+    choices, of vocab words."""
+    import numpy as np
+
+    from slotformer_tpu_torch.datasets.clevrer_vqa import _VOCAB_CACHE
+    from slotformer_tpu_torch.runtime import load_obj
+
+    vocab = load_obj(_VOCAB_CACHE)
+    words = [w for w in vocab["q_vocab"] if w != "PAD"]
+    answers = [a for a in vocab["a_vocab"] if a != "PAD"]
+    r = np.random.default_rng(seed)
+    text = lambda lo, hi: " ".join(r.choice(words, r.integers(lo, hi + 1)))  # noqa: E731
+    scenes = []
+    for i, name in enumerate(names):
+        qs = [{"question_id": q, "question_type": "descriptive",
+               "question": text(4, 20) + "?", "answer": str(r.choice(answers))}
+              for q in range(VQA["descriptive"])]
+        for q in range(VQA["multiple_choice"]):
+            qs.append({"question_id": VQA["descriptive"] + q,
+                       "question_type": ("explanatory", "predictive",
+                                         "counterfactual")[q % 3],
+                       "question": text(4, 20) + "?",
+                       "choices": [{"choice_id": c, "choice": text(2, 12),
+                                    "answer": ("correct" if r.random() < 0.5
+                                               else "wrong")}
+                                   for c in range(VQA["choices"])]})
+        scenes.append({"scene_index": first_scene + i, "video_filename": name,
+                       "questions": qs})
+    return scenes
+
+
+def phase_vqa(workdir, savi_ckp, sf_weight):
+    """The Aloe VQA head on CLEVRER-shaped data: 128-frame synthetic videos
+    encoded through K1 by the StoSAVi phase ``train`` trained, extended to
+    160 frames by ``cli.rollout_slots --task clevrer`` on the SlotFormer
+    ``train_slotformer`` trained, a question file per split; then for both
+    shipped configs (ground-truth and rollout slots): a B=2 step card
+    against CPU, ``cli.train.run`` at full width and B=256 rows,
+    ``cli.test_clevrer_vqa`` on the test and the val split. Returns the K1
+    launches of the extraction."""
+    import numpy as np
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from slotformer_tpu_torch.cli import rollout_slots, test_clevrer_vqa
+    from slotformer_tpu_torch.cli import train as train_cli
+    from slotformer_tpu_torch.cli.extract_slots import extract_video_slots
+    from slotformer_tpu_torch.datasets import SyntheticVideoDataset, build_dataset
+    from slotformer_tpu_torch.kernels import slot_attention as k1
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import (dump_obj, load_checkpoint, load_obj,
+                                              load_params)
+
+    root = os.path.join(workdir, "data", "CLEVRER")
+    savi_params = load_params(os.path.join(CONFIGS, "stosavi_clevrer_params.py"))
+    savi = build_model(savi_params, device=DEVICE)
+    savi.load_state_dict(load_checkpoint(savi_ckp)["state_dict"])
+    T, bs = VQA["video_len"], VQA["extract_batch"]
+    sets = {split: SyntheticVideoDataset(
+                split, num_videos=VQA[split], video_len=T, resolution=(64, 64),
+                frame_offset=1) for split in ("train", "val", "test")}
+    k1.LAUNCHES = 0
+    gt, extract_s = wall_s(lambda: {
+        split: extract_video_slots(savi, ds, bs, VQA["chunk_len"])
+        for split, ds in sets.items()})
+    launches = k1.LAUNCHES
+    gt_path = os.path.join(root, "clevrer_slots.pkl")
+    dump_obj(gt, gt_path)
+    frame_steps = sum(-(-len(ds.files) // bs) for ds in sets.values()) * T
+    del savi
+
+    sf_cfg, _ = derived_params(workdir, "slotformer_clevrer_params",
+                               slots_root=gt_path)
+    ro_path = os.path.join(root, "rollout_clevrer_slots.pkl")
+    _, rollout_s = wall_s(lambda: rollout_slots.main(
+        ["--task", "clevrer", "--params", sf_cfg, "--weight", sf_weight,
+         "--save_path", ro_path, "--device", DEVICE]))
+    ro = load_obj(ro_path)
+    S, D = savi_params.slot_dict["num_slots"], savi_params.slot_dict["slot_size"]
+    rollout_ok = all(
+        s.shape == (160, S, D) and np.isfinite(s).all()
+        and np.array_equal(s[:T], gt[split][n])
+        for split in gt for n, s in ro[split].items())
+    for split, first in (("train", 0), ("val", 10000), ("test", 15000)):
+        dump_obj(_vqa_questions(sorted(gt[split]), first, seed=first),
+                 os.path.join(root, "questions", f"{split}.json"))
+    ok = (launches == frame_steps and rollout_ok
+          and sum(len(v) for v in gt.values()) == 12)
+    emit(phase="vqa", check="slots", videos={k: len(v) for k, v in gt.items()},
+         frames=T, extract_seconds=extract_s, k1_launches=launches,
+         frame_steps=frame_steps, rollout_frames=160,
+         rollout_seconds=rollout_s, rollout_ok=rollout_ok, ok=ok)
+    if not ok:
+        raise AssertionError("VQA slots check failed")
+
+    for name, slots_path in (("aloe_clevrer_params", gt_path),
+                             ("aloe_clevrer_params-rollout", ro_path)):
+        cfg, params = derived_params(
+            workdir, name, data_root=root, slots_root=slots_path, max_epochs=1,
+            eval_interval=1, print_iter=1, num_workers=4)
+        weights = params.loss_weights()
+        train_set, val_set = build_dataset(params)
+        # (a) a B=2 step, one descriptive and one choice row, dropout off
+        rows = [0, next(i for i, r in enumerate(train_set.rows) if not r["is_cls"])]
+        items = [train_set[i] for i in rows]
+        batch = {k: torch.from_numpy(np.stack([np.asarray(it[k]) for it in items]))
+                 for k in ("video_emb", "q_tokens", "q_pad_mask", "is_cls", "label")}
+        torch.manual_seed(13)
+        gpu = build_model(params, device=DEVICE)
+        cpu = build_model(params, device="cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        res = {}
+        for m, dev in ((gpu, DEVICE), (cpu, "cpu")):
+            m.eval()  # dropout off; train_loss does not look at the mode
+            losses = m.train_loss({k: v.to(dev) for k, v in batch.items()})
+            sum(weights.get(n, 1.0) * v for n, v in losses.items()).backward()
+            res[dev] = ({n: v.item() for n, v in losses.items()},
+                        {n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+        (l_gpu, g_gpu), (l_cpu, g_cpu) = res[DEVICE], res["cpu"]
+        loss_err = max(abs(l_gpu[n] / l_cpu[n] - 1) for n in l_cpu)
+        grad_err, worst = _grad_errors(g_gpu, g_cpu)
+        step_ok = (loss_err <= VQA_LOSS_RTOL and grad_err <= VQA_GRAD_RTOL
+                   and len(g_gpu) == len(g_cpu) > 0)
+        emit(phase="vqa", config=name, check="one_step", batch=2,
+             losses_card=l_gpu, loss_rel_err_vs_cpu=loss_err,
+             grad_rel_err_vs_cpu=grad_err, worst_param=worst,
+             n_params=len(g_cpu), tol_loss_rtol=VQA_LOSS_RTOL,
+             tol_grad_rel=VQA_GRAD_RTOL, ok=step_ok)
+        if not step_ok:
+            raise AssertionError(f"Aloe train step ({name}): the card "
+                                 "disagrees with the CPU")
+        del gpu, cpu
+
+        # (b) one epoch through the CLI's code, question-level validation
+        ckp = os.path.join(workdir, "ckpts", name)
+        params.seed = 0
+        method, fit_s = wall_s(lambda: train_cli.run(
+            params, ckp, device=DEVICE, san_check_val_step=1))
+        steps = method.it
+        log, train_log = _read_log(ckp)
+        val_log = [r for r in log if r["phase"] == "val"]
+        scored = bool(val_log) and all(
+            f"{q}_acc" in val_log[-1] for q in
+            ("descriptive", "choice", "multiple-choice", "explanatory",
+             "predictive", "counterfactual"))
+        steps_per_s, loader_batch = _steady_steps_per_s(method)
+        prof = None
+        if name == "aloe_clevrer_params":
+            prof = _profiled_step(method, loader_batch)
+            # which of PyTorch's attention back ends take this layer's call
+            # (8 heads of 18 over 208 tokens, a key-padding mask, float32)
+            B, L = params.train_batch_size, method.model.transformer_model.input_len
+            q = torch.randn(B, 8, L, 18, device=DEVICE)
+            mask = torch.ones(B, 1, 1, L, dtype=torch.bool, device=DEVICE)
+            mask[..., -12:] = False
+            backends = {}
+            for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                       SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+                try:
+                    with sdpa_kernel([be]):
+                        torch.nn.functional.scaled_dot_product_attention(
+                            q, q, q, attn_mask=mask)
+                    torch.cuda.synchronize()
+                    backends[be.name] = True
+                except RuntimeError:
+                    backends[be.name] = False
+            prof["sdpa_backends_taking_the_call"] = backends
+        # (c) the eval CLI on the test split (the submission) and on val
+        weight = os.path.join(ckp, f"model_{steps}.pth")
+        sub_path = os.path.join(workdir, f"{name}_CLEVRER.json")
+        results, test_s = wall_s(lambda: test_clevrer_vqa.main(
+            ["--params", cfg, "--weight", weight, "--split", "test",
+             "--save_path", sub_path, "--device", DEVICE]))
+        asked = load_obj(os.path.join(root, "questions", "test.json"))
+        answered = {s["scene_index"]: s["questions"] for s in results
+                    if s["questions"]}
+        answers_ok = (sorted(answered) == [s["scene_index"] for s in asked]
+                      and all(len(answered[s["scene_index"]]) == len(s["questions"])
+                              for s in asked)
+                      and all(("answer" in q) != ("choices" in q)
+                              for qs in answered.values() for q in qs)
+                      and len(load_obj(sub_path)) == 5000)
+        metrics, val_s = wall_s(lambda: test_clevrer_vqa.main(
+            ["--params", cfg, "--weight", weight, "--split", "val",
+             "--device", DEVICE]))
+        # the model's forward alone over every val row at once, warm
+        model = method.model.eval()
+        vb = method._to_device(next(iter(type(method.val_loader)(
+            val_set, batch_size=len(val_set), num_workers=4))))
+        with torch.no_grad():
+            model(vb)
+            _, fwd_s = wall_s(lambda: [model(vb) for _ in range(5)])
+        n_q = VQA["val"] * VQA["multiple_choice"]
+        metrics_ok = (metrics["descriptive_n"] == VQA["val"] * VQA["descriptive"]
+                      and metrics["multiple-choice_n"] == n_q
+                      and all(0.0 <= metrics[f"{q}_acc"] <= 1.0 for q in
+                              ("descriptive", "multiple-choice", "explanatory",
+                               "predictive", "counterfactual")))
+        # the trainer's question-level validation of the same weights agrees
+        agree = all(abs(val_log[-1][f"{q}_acc"] - metrics[f"{q}_acc"]) <= 1e-6
+                    for q in ("multiple-choice", "explanatory", "predictive",
+                              "counterfactual"))
+        ok = (steps == method.total_steps >= 3 and _finite(log) and scored
+              and answers_ok and metrics_ok and agree)
+        emit(phase="vqa", config=name, check="fit_and_eval",
+             batch_rows=params.train_batch_size, train_rows=len(train_set),
+             val_rows=len(val_set), steps=steps, fit_seconds=fit_s,
+             finite=_finite(log), question_level_val=val_log[-1],
+             steps_per_s=steps_per_s,
+             rows_per_s=steps_per_s * params.train_batch_size,
+             profiled_step=prof, test_seconds=test_s, answers_ok=answers_ok,
+             val_metrics=metrics, val_seconds=val_s,
+             eval_rows_per_s=len(val_set) / val_s,
+             forward_rows_per_s=5 * len(val_set) / fwd_s,
+             val_log_agrees_with_cli=agree, ok=ok)
+        if not ok:
+            raise AssertionError(f"Aloe check failed ({name})")
+    return launches
+
+
+# ------------------------------------------------------- the STEVE family
+
+
+def physion_params(workdir, name, **over):
+    """The shipped Physion config ``name`` with its data under ``workdir``,
+    written as ``workdir/<name>.py`` (the dVAE's file name names its token
+    tree)."""
+    return derived_params(workdir, name,
+                          data_root=os.path.join(workdir, "data", "Physion"),
+                          video_len=PHYSION["video_len"], num_workers=4, **over)
 
 
 def phase_physion_tree(workdir):
@@ -1471,7 +2067,6 @@ def phase_train_steve(workdir, dvae_ckp):
     from slotformer_tpu_torch.datasets import build_dataset
     from slotformer_tpu_torch.kernels import slot_attention as k1
     from slotformer_tpu_torch.models import build_model
-    from slotformer_tpu_torch.models import slot_attention as sa_module
     from slotformer_tpu_torch.runtime import graft, latest_checkpoint, load_checkpoint
 
     _, params = physion_params(workdir, "steve_physion_params", max_epochs=1,
@@ -1486,54 +2081,13 @@ def phase_train_steve(workdir, dvae_ckp):
     items = [train_set[i] for i in (0, len(train_set) // 2)]
     batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
              for k in ("img", "token_id")}
-    torch.manual_seed(9)
-    gpu = build_model(params, device=DEVICE)
-    gpu.load_state_dict(graft(gpu.state_dict(), dvae_sd, {"dvae": ""}))
-    cpu = build_model(params, device="cpu")
-    cpu.load_state_dict(gpu.state_dict())
-    for m in (gpu, cpu):
+
+    def graft_frozen_dvae(m):
+        m.load_state_dict(graft(m.state_dict(), dvae_sd, {"dvae": ""}))
         for n, p in m.named_parameters():
             p.requires_grad_(not n.startswith("dvae."))
-        # dropout off in training mode: the cuDNN LSTM of the predictor
-        # differentiates only in training mode
-        m.train()
-        for mod in m.modules():
-            if isinstance(mod, torch.nn.Dropout):
-                mod.p = 0.0
-            elif isinstance(getattr(mod, "dropout", None), float):
-                mod.dropout = 0.0  # attention dropout
 
-    def one_step(model, device):
-        model.zero_grad(set_to_none=True)
-        losses = model.train_loss({k: v.to(device) for k, v in batch.items()})
-        sum(weights.get(n, 1.0) * v for n, v in losses.items()).backward()
-        return ({n: v.item() for n, v in losses.items()},
-                {n: p.grad.detach().cpu() for n, p in model.named_parameters()
-                 if p.grad is not None})
-
-    l_cpu, g_cpu = one_step(cpu, "cpu")
-    l_gpu, g_gpu = one_step(gpu, DEVICE)
-    with mock.patch.object(sa_module, "fused_slot_attention",
-                           k1.fused_slot_attention_plain):
-        l_plain, g_plain = one_step(gpu, DEVICE)
-    loss_err_cpu = max(abs(l_gpu[n] / l_cpu[n] - 1) for n in l_cpu)
-    loss_err_plain = max(abs(l_gpu[n] / l_plain[n] - 1) for n in l_plain)
-    grad_err_cpu, worst_cpu = _grad_errors(g_gpu, g_cpu)
-    grad_err_plain, worst_plain = _grad_errors(g_gpu, g_plain)
-    step_ok = (max(loss_err_cpu, loss_err_plain) <= TRAIN_LOSS_RTOL
-               and max(grad_err_cpu, grad_err_plain) <= TRAIN_GRAD_RTOL
-               and len(g_cpu) == len(g_gpu) > 0)
-    emit(phase="train_steve", check="one_step", batch=2, frames=T,
-         losses_card=l_gpu, loss_rel_err_vs_cpu=loss_err_cpu,
-         loss_rel_err_vs_plain_k1=loss_err_plain,
-         grad_rel_err_vs_cpu=grad_err_cpu, worst_param_vs_cpu=worst_cpu,
-         grad_rel_err_vs_plain_k1=grad_err_plain,
-         worst_param_vs_plain_k1=worst_plain, n_grads=len(g_cpu),
-         tol_loss_rtol=TRAIN_LOSS_RTOL, tol_grad_rel=TRAIN_GRAD_RTOL, ok=step_ok)
-    if not step_ok:
-        raise AssertionError("STEVE train step: the card disagrees with the "
-                             "CPU or with the plain K1")
-    del gpu, cpu, g_cpu, g_gpu, g_plain
+    _k1_step_check("train_steve", params, batch, seed=9, prepare=graft_frozen_dvae)
 
     # (b) one epoch through the CLI's code under bf16 autocast
     ckp = os.path.join(workdir, "ckpts", "steve_physion_params")
@@ -2045,13 +2599,31 @@ def main() -> int:
     k1_results = timed(phase_kernel)
     k2_results, k2_launches = timed(phase_kernel_update)
     slots, extract_launches = timed(phase_extract, k1_results["clevrer"]["ms"])
-    train_launches = timed(phase_train)
-    timed(phase_rollout, slots)
     with tempfile.TemporaryDirectory() as workdir:
+        train_launches, trained_savi = timed(
+            phase_train, os.path.join(workdir, "stosavi_train"))
+        timed(phase_rollout, slots)
         slots_path, savi_ckp, sf_extract_launches = timed(phase_slots_file, workdir)
         sf_weight = timed(phase_train_slotformer, slots_path, savi_ckp, workdir)
         timed(phase_test_vp, slots_path, sf_weight, workdir)
+        # the VQA head reads slots of the StoSAVi and the SlotFormer trained
+        # above
+        vqa_launches = timed(phase_vqa, workdir, trained_savi, sf_weight)
     cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as workdir:
+        # the shipped OBJ3D configs name their data and the pretrained SAVi
+        # relative to the working directory (./data/OBJ3D,
+        # pretrained/savi_obj3d_params/model.pth)
+        os.chdir(workdir)
+        try:
+            timed(phase_obj3d_tree, workdir)
+            obj3d_savi, obj3d_train_launches = timed(phase_train_savi_obj3d,
+                                                     workdir)
+            obj3d_extract_launches = timed(phase_obj3d_slots, workdir, obj3d_savi)
+            obj3d_sf = timed(phase_train_slotformer_obj3d, workdir, obj3d_savi)
+            timed(phase_test_vp_obj3d, workdir, obj3d_sf)
+        finally:
+            os.chdir(cwd)
     with tempfile.TemporaryDirectory() as workdir:
         # the shipped Physion configs name their pretrained checkpoints
         # relative to the working directory (pretrained/<run>/model.pth);
@@ -2081,6 +2653,7 @@ def main() -> int:
     print(smi, flush=True)
     k1, k2 = k1_results["train_batch"], k2_results["clevrer"]
     k1_steve, k1_steve_train = k1_results["steve"], k1_results["steve_train"]
+    k1_obj3d = k1_results["obj3d"]
     emit(kernels=[
         dict(name="fused_slot_attention", route="cuda",
              source="slotformer_tpu_torch/kernels/csrc/slot_attention.cu",
@@ -2090,7 +2663,10 @@ def main() -> int:
                                    extract=extract_launches,
                                    slotformer_slots_file=sf_extract_launches,
                                    steve_train=steve_train_launches,
-                                   steve_extract=steve_launches),
+                                   steve_extract=steve_launches,
+                                   obj3d_train=obj3d_train_launches,
+                                   obj3d_extract=obj3d_extract_launches,
+                                   vqa_extract=vqa_launches),
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
@@ -2101,7 +2677,9 @@ def main() -> int:
                  grad_rel_err_vs_plain_autograd=k1_grad[
                      "grad_rel_err_vs_plain_autograd"],
                  tol_grad_rel=K1_GRAD_RTOL,
-                 backward_ms_plain_autograd=k1_grad["backward_ms_plain_autograd"])),
+                 backward_ms_plain_autograd=k1_grad["backward_ms_plain_autograd"]),
+             obj3d_case=dict(shape=dict(zip("BNDSH", OBJ3D_K1_SHAPE)),
+                             **k1_obj3d)),
         dict(name="slot_attention_update", route="cuda",
              source="slotformer_tpu_torch/kernels/csrc/slot_attention_update.cu",
              replaces="slotformer_tpu/ops/slot_attention_kernel.py:87",

@@ -9,6 +9,17 @@ from .clevrer import (
     build_clevrer_dataset,
     build_clevrer_slots_dataset,
 )
+from .clevrer_vqa import (
+    CLEVRERVQASlotsDataset,
+    build_clevrer_vqa_dataset,
+    build_vocab,
+)
+from .obj3d import (
+    Obj3DDataset,
+    Obj3DSlotsDataset,
+    build_obj3d_dataset,
+    build_obj3d_slots_dataset,
+)
 from .physion import (
     PhysionDataset,
     PhysionSlotsDataset,
@@ -24,6 +35,9 @@ from .synthetic import (
 
 _BUILDERS = {"clevrer": build_clevrer_dataset,
              "clevrer_slots": build_clevrer_slots_dataset,
+             "clevrer_vqa": build_clevrer_vqa_dataset,
+             "obj3d": build_obj3d_dataset,
+             "obj3d_slots": build_obj3d_slots_dataset,
              "synthetic": build_synthetic_dataset,
              "synthetic_slots": build_synthetic_slots_dataset,
              "physion": build_physion_dataset,

@@ -1,6 +1,7 @@
 """Per-model training methods and ``build_method``: the port of
 ``slotformer_tpu/methods.py`` for the models the port trains (StoSAVi, SAVi,
-SlotFormer; the STEVE family: dVAE, STEVE, STEVESlotFormer).
+SlotFormer; the STEVE family: dVAE, STEVE, STEVESlotFormer; the Aloe VQA
+head, CLEVRERAloe).
 """
 
 from __future__ import annotations
@@ -194,9 +195,54 @@ class STEVEMethod(BaseMethod):
                    fps=8)
 
 
+def score_questions(mc_rows: dict) -> Dict[str, list]:
+    """Question-level multiple-choice scoring (reference aloe.py:33-92):
+    ``mc_rows`` maps (scene_index, question_id) to that question's choice
+    rows as (row right?, q_subtype); a question counts as right only when
+    every one of its rows is. Returns the verdicts of all questions
+    (``'multiple-choice'``) and of each subtype."""
+    out = {"multiple-choice": [], "explanatory": [], "predictive": [],
+           "counterfactual": []}
+    names = {1: "explanatory", 2: "predictive", 3: "counterfactual"}
+    for rows in mc_rows.values():
+        ok = all(right for right, _ in rows)
+        out["multiple-choice"].append(ok)
+        out[names[rows[0][1]]].append(ok)
+    return out
+
+
+class VQAMethod(BaseMethod):
+    """Aloe VQA training (reference clevrer_vqa/method.py). Validation adds
+    the reference's question-level scores: a multiple-choice question is
+    right only when all its choice rows are, overall and per subtype
+    (explanatory, predictive, counterfactual); rows are regrouped by
+    (scene_index, question_id) on the host, as ``cli/test_clevrer_vqa.py``
+    does."""
+
+    def validation_epoch(self, san_check_step: int = -1) -> Dict[str, float]:
+        from collections import defaultdict
+
+        self.model.eval()
+        self.stats.reset()
+        mc_rows = defaultdict(list)
+        with torch.no_grad():
+            for batch, db, n in self._val_batches(san_check_step):
+                losses, (_, mc_right) = self.model.eval_step(db)
+                self._update_val_stats(losses, n)
+                mc_right = mc_right.cpu().numpy()
+                for r in np.nonzero(~batch["is_cls"].astype(bool))[0]:
+                    mc_rows[(int(batch["scene_index"][r]),
+                             int(batch["question_id"][r]))].append(
+                        (bool(mc_right[r]), int(batch["q_subtype"][r])))
+        extra = {f"{name}_acc": float(np.mean(v))
+                 for name, v in score_questions(mc_rows).items() if v}
+        return self._finish_validation(san_check_step, extra=extra)
+
+
 _METHODS = {"StoSAVi": SAViMethod, "SAVi": SAViMethod,
             "SlotFormer": SlotFormerMethod, "dVAE": dVAEMethod,
-            "STEVE": STEVEMethod, "STEVESlotFormer": STEVESlotFormerMethod}
+            "STEVE": STEVEMethod, "STEVESlotFormer": STEVESlotFormerMethod,
+            "CLEVRERAloe": VQAMethod}
 
 
 def build_method(model=None, datamodule=None, params=None, ckp_path="",

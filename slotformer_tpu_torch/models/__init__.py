@@ -14,6 +14,7 @@ from .nn import (
     build_grid,
     get_sin_pos_enc,
 )
+from .aloe import CLEVRERAloe, CLEVRERTransformerModel
 from .dvae import dVAE, gumbel_softmax, make_one_hot
 from .predictor import (
     ResidualMLPPredictor,
@@ -83,6 +84,18 @@ def build_model(params, device="cuda") -> torch.nn.Module:
             dvae_dict=params.dvae_dict,
             dec_dict=params.dec_dict,
             rollout_dict=params.rollout_dict,
+            loss_dict=params.loss_dict,
+        )
+    elif name == "CLEVRERAloe":
+        from ..runtime.io import load_obj
+
+        vocab = load_obj(params.vocab_file)
+        model = CLEVRERAloe(
+            transformer_dict=params.transformer_dict,
+            lang_dict=dict(question_vocab_size=len(vocab["q_vocab"]),
+                           answer_vocab_size=len(vocab["a_vocab"]),
+                           question_len=params.max_question_len),
+            vision_dict=params.vision_dict,
             loss_dict=params.loss_dict,
         )
     else:

@@ -137,11 +137,13 @@ def get_sin_pos_enc(seq_len: int, d_model: int) -> torch.Tensor:
 
 def PosEnc(kind: str, input_len: int, d_model: int) -> Optional[nn.Parameter]:
     """Positional table [1, L, D] as the reference's ``build_pos_enc`` makes
-    it: a frozen sinusoid (a Parameter with ``requires_grad=False``, so
-    checkpoints carry it) or ``None`` for no encoding. The learnable kind,
-    which no config uses, is not ported."""
+    it: a zero-initialised learnable Parameter (``'learnable'``, Aloe's), a
+    frozen sinusoid (a Parameter with ``requires_grad=False``, so
+    checkpoints carry it) or ``None`` for no encoding."""
     if not kind:
         return None
+    if kind == "learnable":
+        return nn.Parameter(torch.zeros(1, input_len, d_model))
     if "sin" in kind:
         return nn.Parameter(get_sin_pos_enc(input_len, d_model),
                             requires_grad=False)

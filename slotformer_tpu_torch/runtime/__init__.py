@@ -5,6 +5,7 @@ from .checkpoint import graft, latest_checkpoint, load_checkpoint, save_checkpoi
 from .datamodule import BaseDataModule, DataLoader, Dataset, default_collate
 from .io import (
     dump_obj,
+    glob_all,
     load_obj,
     mkdir_or_exist,
     read_img,
@@ -26,7 +27,7 @@ __all__ = [
     "AverageMeter", "BaseDataModule", "BaseMethod", "BaseParams", "DataLoader",
     "Dataset", "MeanMetric", "MeterBank", "ScheduledOptimizer",
     "build_optimizer", "cosine_anneal", "cosine_annealing_warmup",
-    "default_collate", "dump_obj", "graft", "latest_checkpoint",
+    "default_collate", "dump_obj", "glob_all", "graft", "latest_checkpoint",
     "load_checkpoint", "load_obj", "load_params", "mkdir_or_exist", "read_img",
     "save_checkpoint", "save_video", "strip_suffix", "symlink_force",
 ]

@@ -7,6 +7,7 @@ when a file is read.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import pickle
@@ -18,6 +19,16 @@ import numpy as np
 def mkdir_or_exist(dirname: str) -> None:
     if dirname:
         os.makedirs(dirname, exist_ok=True)
+
+
+def glob_all(pattern_or_dir: str, only_dir: bool = False) -> List[str]:
+    """Sorted glob; pass a directory to list its entries."""
+    if os.path.isdir(pattern_or_dir):
+        pattern_or_dir = os.path.join(pattern_or_dir, "*")
+    results = sorted(glob.glob(pattern_or_dir))
+    if only_dir:
+        results = [r for r in results if os.path.isdir(r)]
+    return results
 
 
 def strip_suffix(path: str) -> str:
@@ -36,8 +47,13 @@ def load_obj(path: str) -> Any:
 
 
 def dump_obj(obj: Any, path: str) -> None:
-    """Save an object as a pickle, creating the parent directory."""
+    """Save an object as json (by suffix) or else a pickle, creating the
+    parent directory."""
     mkdir_or_exist(os.path.dirname(path))
+    if os.path.splitext(path)[1].lower() == ".json":
+        with open(path, "w") as f:
+            json.dump(obj, f)
+        return
     with open(path, "wb") as f:
         pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
 

@@ -224,22 +224,35 @@ class BaseMethod:
                                                 save_every)
 
     # ----------------------------------------------------------- validation
-    def validation_epoch(self, san_check_step: int = -1) -> Dict[str, float]:
-        """Average the eval losses over the val loader (its first
-        ``san_check_step`` batches when > 0). Batch ``i`` draws its kernel
-        noise from a generator seeded with ``i``: different noise per batch,
-        the same in every validation."""
-        self.model.eval()
-        self.stats.reset()
-        with torch.no_grad():
-            for i, batch in enumerate(self.val_loader):
-                if 0 < san_check_step <= i:
-                    break
-                db = self._to_device(batch)
-                gen = torch.Generator(self.device).manual_seed(i)
-                losses = self.model.eval_loss(db, generator=gen)
-                self.stats.update(losses, n=next(iter(db.values())).shape[0])
+    def _val_batches(self, san_check_step: int = -1):
+        """(collated batch, its tensors on the device, rows) over the val
+        loader, its first ``san_check_step`` batches when > 0."""
+        for i, batch in enumerate(self.val_loader):
+            if 0 < san_check_step <= i:
+                break
+            db = self._to_device(batch)
+            yield batch, db, next(iter(db.values())).shape[0]
+
+    def _update_val_stats(self, losses: dict, n: int) -> None:
+        """Meter update with per-metric row counts (reference
+        clevrer_vqa/method.py:63-112): a ``<name>_bs`` entry weights that
+        metric by its own count (descriptive against multiple-choice rows);
+        a metric without one is weighted by the batch's rows."""
+        losses = {k: float(v) for k, v in losses.items()}
+        ws = {k[:-len("_bs")]: losses.pop(k) for k in list(losses)
+              if k.endswith("_bs")}
+        for k, v in losses.items():
+            w = ws.get(k, n)
+            if w > 0:
+                self.stats.update({k: v}, n=w)
+
+    def _finish_validation(self, san_check_step: int,
+                           extra: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+        """Log the averages (and ``extra`` metrics); save the sample videos
+        after a full validation."""
         avgs = self.stats.averages()
+        if extra:
+            avgs.update(extra)
         self._log({"phase": "val", "step": self.it,
                    **{k: round(v, 6) for k, v in avgs.items()}})
         if san_check_step <= 0 and int(self.params.get("n_samples", 0)) > 0:
@@ -250,6 +263,19 @@ class BaseMethod:
             except Exception as e:  # a failed visualisation must not end training
                 print(f"[warn] _sample_video failed: {e}", flush=True)
         return avgs
+
+    def validation_epoch(self, san_check_step: int = -1) -> Dict[str, float]:
+        """Average the eval losses over the val loader (its first
+        ``san_check_step`` batches when > 0). Batch ``i`` draws its kernel
+        noise from a generator seeded with ``i``: different noise per batch,
+        the same in every validation."""
+        self.model.eval()
+        self.stats.reset()
+        with torch.no_grad():
+            for i, (_, db, n) in enumerate(self._val_batches(san_check_step)):
+                gen = torch.Generator(self.device).manual_seed(i)
+                self._update_val_stats(self.model.eval_loss(db, generator=gen), n)
+        return self._finish_validation(san_check_step)
 
     # -------------------------------------------------------- media logging
     def _sample_video(self) -> None:

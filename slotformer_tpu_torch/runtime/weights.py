@@ -5,7 +5,7 @@
 whose keys are the reference torch layout. It is the inverse of
 ``slotformer_tpu.runtime.torch_compat.stosavi`` / ``.slotformer`` (+
 ``savi_decoder``) / ``.dvae`` / ``.steve`` / ``.steve_slotformer`` (+
-``savi_cell`` with an LSTM predictor); the re-encodings are:
+``savi_cell`` with an LSTM predictor) / ``.aloe``; the re-encodings are:
 
   * Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
   * LayerNorm ``scale`` -> ``weight``;
@@ -26,8 +26,9 @@ whose keys are the reference torch layout. It is the inverse of
   * the JAX STEVESlotFormer's ``trans_decoder`` -> the reference's
     ``decoder``;
   * buffers that carry no learned value (the coordinate grids, the frozen
-    sinusoidal PE, the token decoder's causal masks) are rebuilt from the
-    config or the tree's shapes.
+    sinusoidal PE, the token decoder's causal masks, Aloe's fixed tag
+    tokens, constants in JAX) are rebuilt from the config or the tree's
+    shapes.
 
 ``runtime.checkpoint.load_checkpoint`` reads a reference-format
 ``{'state_dict': ...}`` file.
@@ -40,6 +41,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..models.aloe import TAG_TOKENS
 from ..models.nn import build_grid, get_sin_pos_enc
 
 StateDict = Dict[str, torch.Tensor]
@@ -264,14 +266,34 @@ def _dvae_model(tree: dict, cfg) -> StateDict:
     return sd
 
 
+def _aloe(tree: dict, cfg) -> StateDict:
+    tm, p = tree["transformer_model"], "transformer_model"
+    sd: StateDict = {
+        f"{p}.q_embedding.weight": _t(tm["q_embedding"]["embedding"]),
+        f"{p}.CLS": _t(tm["CLS"]),
+        f"{p}.transformer_encoder.pos_enc": _t(tm["pos_enc"]["pos_embedding"]),
+    }
+    _linear(sd, f"{p}.q_in_proj", tm["q_in_proj"])
+    _linear(sd, f"{p}.vision_in_proj", tm["vision_in_proj"])
+    _transformer_encoder(sd, f"{p}.transformer_encoder.transformer_encoder",
+                         tm["transformer_encoder"])
+    for head in ("cls_answer", "mc_answer"):
+        _linear(sd, f"{p}.{head}_mlp.0", tm[f"{head}_0"])
+        _linear(sd, f"{p}.{head}_mlp.2", tm[f"{head}_1"])
+    for name, tag in TAG_TOKENS.items():
+        sd[f"{p}.{name}"] = torch.tensor(tag)
+    return sd
+
+
 _KINDS = {"StoSAVi": _stosavi, "SlotFormer": _slotformer, "dVAE": _dvae_model,
-          "STEVE": _steve, "STEVESlotFormer": _steve_slotformer}
+          "STEVE": _steve, "STEVESlotFormer": _steve_slotformer,
+          "CLEVRERAloe": _aloe}
 
 
 def from_jax_params(tree: dict, model_kind: str, cfg) -> StateDict:
     """A JAX param tree of ``model_kind`` (a key of ``_KINDS``: 'StoSAVi',
-    'SlotFormer', 'dVAE', 'STEVE' or 'STEVESlotFormer', built from the config
-    ``cfg``) as the port's reference-layout state_dict."""
+    'SlotFormer', 'dVAE', 'STEVE', 'STEVESlotFormer' or 'CLEVRERAloe', built
+    from the config ``cfg``) as the port's reference-layout state_dict."""
     if model_kind not in _KINDS:
         raise NotImplementedError(f"model {model_kind} is not ported yet")
     return _KINDS[model_kind](tree, cfg)

@@ -277,6 +277,17 @@ def test_fused_check_takes_what_a_cluster_block_holds(D, H, blocks):
         assert k1._check(k, v, slots, _random_wp(r, D, H), 3)[:4] == (1, 8, D, H)
 
 
+def test_fused_check_takes_the_obj3d_training_shape():
+    """OBJ3D SAVi's training call, (B, N, D, S, H) = (64, 4096, 128, 6, 256):
+    6 slots with D=128's resident slot-side weights, H split over a cluster
+    of 8 blocks."""
+    B, N, D, S, H = 64, 4096, 128, 6, 256
+    assert k1.cluster_blocks(D, H) == 8 and H // 8 <= k1.MAX_COLS_PER_BLOCK
+    k, v = torch.empty(B, N, D), torch.empty(B, N, D)  # shapes only
+    slots = t(randn(rng(33), B, S, D))
+    assert k1._check(k, v, slots, _random_wp(rng(34), D, H), S)[:4] == (B, N, D, H)
+
+
 @pytest.mark.parametrize("case", ["d_not_multiple_of_4", "d_above_256",
                                   "misaligned_v"])
 def test_update_check_raises_on_what_the_kernel_refuses(case):

@@ -55,7 +55,8 @@ def _inputs(B, N, D, S, H, device, seed=0):
 @pytest.mark.parametrize("B,N,D,S,H", [(8, 4096, 128, 7, 256),
                                        (3, 1000, 128, 5, 256),
                                        (2, 777, 64, 8, 96),
-                                       (8, 4096, 192, 6, 384)])
+                                       (8, 4096, 192, 6, 384),
+                                       (64, 4096, 128, 6, 256)])
 def test_kernel_matches_plain(cuda, B, N, D, S, H):
     k, v, slots, wp = _inputs(B, N, D, S, H, cuda)
     before = k1.LAUNCHES
