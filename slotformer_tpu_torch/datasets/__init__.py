@@ -1,7 +1,7 @@
 """Datasets of the port; ``build_dataset`` dispatches on ``params.dataset``
 and returns (train, val), or val alone with ``val_only``. Physion names
 carry their subset as a suffix (``physion_training``,
-``physion_slots_readout``)."""
+``physion_slots_readout``, ``physion_slots_label_test``)."""
 
 from .clevrer import (
     CLEVRERDataset,
@@ -23,8 +23,17 @@ from .obj3d import (
 from .physion import (
     PhysionDataset,
     PhysionSlotsDataset,
+    PhysionSlotsLabelDataset,
     build_physion_dataset,
     build_physion_slots_dataset,
+    build_physion_slots_label_dataset,
+)
+from .phyre import (
+    PHYREDataset,
+    PHYRESlotsDataset,
+    build_phyre_dataset,
+    build_phyre_rollout_slots_dataset,
+    build_phyre_slots_dataset,
 )
 from .synthetic import (
     SyntheticSlotsDataset,
@@ -41,7 +50,11 @@ _BUILDERS = {"clevrer": build_clevrer_dataset,
              "synthetic": build_synthetic_dataset,
              "synthetic_slots": build_synthetic_slots_dataset,
              "physion": build_physion_dataset,
-             "physion_slots": build_physion_slots_dataset}
+             "physion_slots": build_physion_slots_dataset,
+             "physion_slots_label": build_physion_slots_label_dataset,
+             "phyre": build_phyre_dataset,
+             "phyre_slots": build_phyre_slots_dataset,
+             "phyre_rollout_slots": build_phyre_rollout_slots_dataset}
 
 
 def build_dataset(params, val_only=False):

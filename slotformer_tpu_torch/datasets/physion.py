@@ -1,6 +1,7 @@
-"""Physion videos and slots, the port of ``slotformer_tpu/datasets/physion.py``
-(``PhysionDataset``, ``PhysionSlotsDataset`` and their builders; the label
-dataset of the readout heads is not ported yet).
+"""Physion videos, slots and labels, the port of
+``slotformer_tpu/datasets/physion.py``: ``PhysionDataset``,
+``PhysionSlotsDataset``, ``PhysionSlotsLabelDataset`` (whole-video slots and
+the VQA label, for the readout head) and their builders.
 
 Eight scenarios x {training, readout, test} subsets, listed by the split
 files in ``_SPLIT_DIR`` (the port's own copy, ``splits/Physion/*.json``:
@@ -25,7 +26,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..runtime.datamodule import Dataset
-from ..runtime.io import load_obj, read_img
+from ..runtime.io import load_obj, read_all_lines, read_img
 from .utils import BaseTransforms
 
 # module-level so that tests can point it at mini split files
@@ -177,6 +178,98 @@ class PhysionSlotsDataset(PhysionDataset):
         return out
 
 
+class PhysionSlotsLabelDataset(PhysionSlotsDataset):
+    """(slots of the first ``video_len`` frames [video_len, N, C], the VQA
+    label) of each video of the readout or test subset, with ``task_idx``,
+    the video's task in ``all_tasks``. Labels come from
+    ``PhysionTrainMP4s/readout_labels.csv`` or ``PhysionTestMP4s/labels.csv``
+    under ``data_root``. The test subset drops the stimuli listed in
+    ``bad_stimuli.txt`` and reads the label of a ``-redyellow`` video under
+    its name without that suffix. An item that cannot be read is replaced
+    by a random other one, drawn from the dataset's own generator."""
+
+    def __init__(self, data_root, video_slots, split, tasks, physion_transform,
+                 n_sample_frames=15, frame_offset=None, video_len=150,
+                 subset="training", load_img=False):
+        if subset == "readout":
+            label_fn = "PhysionTrainMP4s/readout_labels.csv"
+        elif subset == "test":
+            label_fn = "PhysionTestMP4s/labels.csv"
+        else:
+            raise NotImplementedError(f"subset {subset!r} has no labels")
+        self.labels = _read_label_csv(osp.join(data_root, label_fn))
+        super().__init__(data_root=data_root, video_slots=video_slots,
+                         split=split, tasks=tasks,
+                         physion_transform=physion_transform,
+                         n_sample_frames=n_sample_frames,
+                         frame_offset=frame_offset, video_len=video_len,
+                         subset=subset, load_img=load_img)
+        if self.frame_offset != 1:
+            raise ValueError("the label dataset reads every frame")
+        self.sample_idx = list(range(video_len))
+        self.rng = np.random.default_rng(0)
+        if subset != "readout":
+            bad = read_all_lines(osp.join(_SPLIT_DIR, "bad_stimuli.txt"))
+            keep, keep_tasks = [], {}
+            for i, f in enumerate(self.files):
+                if not any(s in f.replace("-redyellow", "") for s in bad):
+                    # the task map follows the kept files' new indices
+                    keep_tasks[len(keep)] = self.video_idx2task_idx[i]
+                    keep.append(f)
+            print(f"remove {len(self.files) - len(keep)} files, now have "
+                  f"{len(keep)}")
+            self.files = keep
+            self.video_idx2task_idx = keep_tasks
+
+    def _rand_another(self):
+        return self[int(self.rng.integers(len(self)))]
+
+    def _read_frames(self, file_idx) -> np.ndarray:
+        return self._frames(self.files[file_idx], self.sample_idx)
+
+    def _read_slots(self, file_idx) -> np.ndarray:
+        slots = self.video_slots[osp.basename(self.files[file_idx])]
+        return slots[self.sample_idx].astype(np.float32)
+
+    def _read_label(self, file_idx) -> int:
+        key = osp.basename(self.files[file_idx])
+        if key.endswith(".mp4"):
+            key = key[:-4]
+        if self.subset == "readout" and key.endswith("_img"):
+            key = key[:-4]
+        if self.subset == "test":
+            key = key.replace("-redyellow", "")
+        return 1 if self.labels[key] else 0
+
+    def __getitem__(self, idx):
+        try:
+            out = {"slots": self._read_slots(idx), "label": self._read_label(idx)}
+            if self.load_img:
+                out["img"] = self._read_frames(idx)
+        except (ValueError, KeyError):
+            return self._rand_another()
+        out["data_idx"] = idx
+        out["task_idx"] = self.video_idx2task_idx[idx]
+        return out
+
+    def __len__(self):
+        return len(self.files)
+
+
+def _read_label_csv(path: str) -> dict:
+    """A CSV with columns (name, 'ground truth outcome') -> {name: bool}."""
+    import csv
+
+    out = {}
+    with open(path, "r") as f:
+        reader = csv.DictReader(f)
+        name_col = reader.fieldnames[0]
+        for row in reader:
+            out[row[name_col]] = (str(row["ground truth outcome"]).strip().lower()
+                                  in ("true", "1", "yes"))
+    return out
+
+
 def _dvae_path_from(params) -> str:
     """The dVAE run's name: the directory of ``dvae_dict['dvae_ckp_path']``
     under its top folder (``pretrained/<name>/model.pth``), else
@@ -235,3 +328,26 @@ def build_physion_slots_dataset(params, val_only=False):
         **dict(args, split="train", video_slots=slots["train"]))
     train_dataset.dvae_path = val_dataset.dvae_path
     return train_dataset, val_dataset
+
+
+def build_physion_slots_label_dataset(params, val_only=False):
+    """``params.dataset`` is ``physion_slots_label_<subset>`` (readout or
+    test); the slots come from ``params.slots_root``."""
+    subset = params.dataset.split("_")[-1]
+    slots = load_obj(params.slots_root)
+    args = dict(data_root=params.data_root, split="val", tasks=params.tasks,
+                physion_transform=BaseTransforms(params.resolution),
+                n_sample_frames=params.n_sample_frames,
+                frame_offset=params.frame_offset, video_len=params.video_len,
+                subset=subset)
+    if subset == "test":
+        args.update(split="test", video_slots=slots["test"])
+        val_only = True
+    else:
+        args["video_slots"] = slots["val"]
+    val_dataset = PhysionSlotsLabelDataset(**args)
+    if val_only:
+        return val_dataset
+    return (PhysionSlotsLabelDataset(**dict(args, split="train",
+                                            video_slots=slots["train"])),
+            val_dataset)

@@ -1,7 +1,8 @@
 """Per-model training methods and ``build_method``: the port of
 ``slotformer_tpu/methods.py`` for the models the port trains (StoSAVi, SAVi,
-SlotFormer; the STEVE family: dVAE, STEVE, STEVESlotFormer; the Aloe VQA
-head, CLEVRERAloe).
+SlotFormer and SingleStepSlotFormer; the STEVE family: dVAE, STEVE,
+STEVESlotFormer; the Aloe VQA head, CLEVRERAloe; the readout heads,
+PHYREReadout and PhysionReadout).
 """
 
 from __future__ import annotations
@@ -239,10 +240,49 @@ class VQAMethod(BaseMethod):
         return self._finish_validation(san_check_step, extra=extra)
 
 
+class ReadoutMethod(BaseMethod):
+    """PHYRE / Physion readout-head training (reference
+    phyre_planning/method.py, physion_vqa/method.py). Each validation saves
+    ``n_samples`` val videos side by side to ``<ckp>/vis/readout_<it>.mp4``
+    and their (label, predicted probability) pairs to the JSON file beside
+    it, in place of the reference's captioned wandb videos."""
+
+    @torch.no_grad()
+    def _sample_video(self) -> None:
+        import json
+
+        dst = self.val_loader.dataset
+        if not hasattr(dst, "load_img"):
+            raise NotImplementedError
+        n = int(self.params.get("n_samples", 5))
+        saved, dst.load_img = dst.load_img, True
+        try:
+            idxs = np.arange(0, len(dst), max(len(dst) // n, 1))[:n]
+            items = [dst[int(i)] for i in idxs]
+        finally:
+            dst.load_img = saved
+        if "img" not in items[0]:
+            raise NotImplementedError
+        slots = torch.from_numpy(np.stack([it["slots"] for it in items]))
+        self.model.eval()
+        logits = self.model({"slots": slots.to(self.device)})["logits"]
+        probs = torch.sigmoid(logits.float()).reshape(-1).cpu().numpy()
+        grid = np.clip(np.concatenate([it["img"] for it in items], axis=1)
+                       * 0.5 + 0.5, 0, 1)
+        save_video(grid, os.path.join(self._vis_dir(), f"readout_{self.it}.mp4"),
+                   fps=8)
+        with open(os.path.join(self._vis_dir(), f"readout_{self.it}.json"),
+                  "w") as f:
+            json.dump([{"gt": int(it["label"]), "pred": round(float(p), 4)}
+                       for it, p in zip(items, probs)], f)
+
+
 _METHODS = {"StoSAVi": SAViMethod, "SAVi": SAViMethod,
-            "SlotFormer": SlotFormerMethod, "dVAE": dVAEMethod,
+            "SlotFormer": SlotFormerMethod,
+            "SingleStepSlotFormer": SlotFormerMethod, "dVAE": dVAEMethod,
             "STEVE": STEVEMethod, "STEVESlotFormer": STEVESlotFormerMethod,
-            "CLEVRERAloe": VQAMethod}
+            "CLEVRERAloe": VQAMethod, "PHYREReadout": ReadoutMethod,
+            "PhysionReadout": ReadoutMethod}
 
 
 def build_method(model=None, datamodule=None, params=None, ckp_path="",

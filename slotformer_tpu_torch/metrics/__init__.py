@@ -1,6 +1,8 @@
 """Evaluation metrics of the port: video-prediction and object-centric
-metrics, LPIPS, and the visualisation helpers of the eval CLIs."""
+metrics, LPIPS, PHYRE's AUCCESS, and the visualisation helpers of the eval
+CLIs."""
 
+from .auccess import auccess_from_conf
 from .lpips import load_lpips, untrained_lpips_weights
 from .vp_metrics import (
     ARI_metric,
@@ -24,6 +26,7 @@ from .vp_metrics import (
 )
 
 __all__ = [
+    "auccess_from_conf",
     "load_lpips",
     "untrained_lpips_weights",
     "ARI_metric",

@@ -30,7 +30,13 @@ from .savi import (
     StoSAVi,
 )
 from .slot_attention import SlotAttention, SlotAttentionWMask
-from .slotformer import SlotFormer, SlotRollouter
+from .readout import PHYREReadout, PhysionReadout
+from .slotformer import (
+    SingleStepSlotFormer,
+    SingleStepSlotRollouter,
+    SlotFormer,
+    SlotRollouter,
+)
 from .steve import STEVE
 from .steve_slotformer import STEVESlotFormer
 from .steve_transformer import STEVETransformerDecoder
@@ -54,8 +60,9 @@ def build_model(params, device="cuda") -> torch.nn.Module:
             pred_dict=params.pred_dict,
             loss_dict=params.loss_dict,
         )
-    elif name == "SlotFormer":
-        model = SlotFormer(
+    elif name in ("SlotFormer", "SingleStepSlotFormer"):
+        cls = SlotFormer if name == "SlotFormer" else SingleStepSlotFormer
+        model = cls(
             resolution=tuple(params.resolution),
             clip_len=params.get("n_sample_frames", 16),
             slot_dict=params.slot_dict,
@@ -98,6 +105,10 @@ def build_model(params, device="cuda") -> torch.nn.Module:
             vision_dict=params.vision_dict,
             loss_dict=params.loss_dict,
         )
+    elif name == "PHYREReadout":
+        model = PHYREReadout(readout_dict=params.readout_dict)
+    elif name == "PhysionReadout":
+        model = PhysionReadout(readout_dict=params.readout_dict)
     else:
         raise NotImplementedError(f"model {name} is not ported yet")
     return model.to(device).eval()

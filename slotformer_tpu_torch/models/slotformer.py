@@ -1,6 +1,6 @@
 """SlotFormer, the port of ``slotformer_tpu/models/slotformer.py``: rollout,
-decode and the training losses (``SingleStepSlotFormer``, the PHYRE variant,
-is not ported yet).
+decode and the training losses, and ``SingleStepSlotFormer``, the PHYRE
+variant that rolls out from one frame.
 
 State-dict layout as the reference: ``rollouter.*`` plus the frozen SAVi
 decoder's ``decoder.*`` and ``decoder_pos_embedding.*`` at the top level.
@@ -92,6 +92,7 @@ class SlotRollouter(nn.Module):
         self.num_slots = num_slots
         self.slot_size = slot_size
         self.history_len = history_len
+        self.ctx_len = history_len  # frames of the window
         self.d_model = d_model
         self.in_proj = nn.Linear(slot_size, d_model)
         self.transformer_encoder = TransformerEncoder(
@@ -101,15 +102,15 @@ class SlotRollouter(nn.Module):
         self.enc_slots_pe = PosEnc(slots_pe, num_slots, d_model)
 
     def _pos_enc(self) -> torch.Tensor:
-        """[1, history_len*N, d_model]: temporal PE repeated per slot (+ slot
-        PE repeated per step)."""
-        pe = torch.zeros(1, self.history_len, self.num_slots, self.d_model,
+        """[1, ctx_len*N, d_model]: temporal PE repeated per slot (+ slot PE
+        repeated per step)."""
+        pe = torch.zeros(1, self.ctx_len, self.num_slots, self.d_model,
                          device=self.in_proj.weight.device)
         if self.enc_t_pe is not None:
             pe = pe + self.enc_t_pe[:, :, None, :]
         if self.enc_slots_pe is not None:
             pe = pe + self.enc_slots_pe[:, None, :, :]
-        return pe.reshape(1, self.history_len * self.num_slots, self.d_model)
+        return pe.reshape(1, self.ctx_len * self.num_slots, self.d_model)
 
     def forward(self, x: torch.Tensor, pred_len: int) -> torch.Tensor:
         if x.shape[1] != self.history_len:
@@ -125,6 +126,46 @@ class SlotRollouter(nn.Module):
             preds.append(pred)
             buf = torch.cat([buf[:, N:], pred], dim=1)
         return torch.stack(preds, 1)  # [B, pred_len, N, C]
+
+
+class SingleStepSlotRollouter(SlotRollouter):
+    """Iterative-overlap rollout from one frame (PHYRE; reference
+    single_step_slotformer.py:6-90): the context grows [I0] -> [I0, P1] ->
+    ... up to ``cond_len`` frames, then slides. As in the JAX package, the
+    context is a fixed right-aligned [B, cond_len*N, C] buffer whose unfilled
+    left part is hidden from attention by a key-padding mask, so the
+    positional encodings sit at the buffer's positions."""
+
+    def __init__(self, num_slots: int, slot_size: int, history_len: int,
+                 cond_len: int, **kw):
+        if history_len != 1:
+            raise ValueError("SingleStepSlotRollouter rolls out from the "
+                             "initial frame only (history_len=1)")
+        super().__init__(num_slots, slot_size, history_len, **kw)
+        self.cond_len = self.ctx_len = cond_len
+        self.enc_t_pe = PosEnc(kw.get("t_pe", "sin"), cond_len, self.d_model)
+
+    def forward(self, x: torch.Tensor, pred_len: int) -> torch.Tensor:
+        """[B, 1, N, C] -> [B, pred_len, N, C]."""
+        if x.shape[1] != 1:
+            raise ValueError(f"wrong burn-in steps {x.shape[1]}, expected 1")
+        B, _, N, C = x.shape
+        L = self.cond_len * N
+        buf = torch.cat([x.new_zeros(B, L - N, C), x.reshape(B, N, C)], 1)
+        pe = self._pos_enc().to(buf.dtype)
+        tok_pos = torch.arange(L, device=x.device)
+        preds = []
+        for step in range(pred_len):
+            # frames in the buffer so far: the observed one + step predictions
+            n_valid = min(1 + step, self.cond_len) * N
+            pad = None if n_valid == L else (
+                tok_pos < L - n_valid).expand(B, L)  # True = padded
+            h = self.transformer_encoder(self.in_proj(buf) + pe,
+                                         key_padding_mask=pad)
+            pred = self.out_proj(h[:, -N:])
+            preds.append(pred)
+            buf = torch.cat([buf[:, N:], pred], dim=1)
+        return torch.stack(preds, 1)
 
 
 class SlotFormer(nn.Module):
@@ -145,7 +186,7 @@ class SlotFormer(nn.Module):
             self.resolution, self.slot_size, dec_dict))
         rd = dict(rollout_dict or {})
         self.history_len = rd.get("history_len", 6)
-        self.rollouter = SlotRollouter(**rd)
+        self.rollouter = self._make_rollouter(rd)
         ld = loss_dict or {}
         self.eps = eps
         self.rollout_len = ld.get("rollout_len", 6)
@@ -157,6 +198,9 @@ class SlotFormer(nn.Module):
         self.dec_custom_bwd = bool(ld.get("dec_custom_bwd", False))
         if self.dec_custom_bwd and (dec_dict or {}).get("dec_norm", ""):
             raise ValueError("dec_custom_bwd supports norm-free decoders only")
+
+    def _make_rollouter(self, rd: dict) -> nn.Module:
+        return SlotRollouter(**rd)
 
     def decode(self, slots: torch.Tensor):
         """Decode slots through the (frozen) SAVi decoder."""
@@ -358,3 +402,12 @@ class SlotFormer(nn.Module):
         """The loss dict of ``batch`` plus the per-step slot losses
         ``slot_recon_loss_1..6`` (call in ``eval()`` mode)."""
         return self.calc_train_loss(batch, self(batch), training=False)
+
+
+class SingleStepSlotFormer(SlotFormer):
+    """The PHYRE variant: one observed frame, iterative-overlap rollout
+    (reference single_step_slotformer.py:93-129). The task-success
+    classifier is the separate ``PHYREReadout``."""
+
+    def _make_rollouter(self, rd: dict) -> nn.Module:
+        return SingleStepSlotRollouter(**rd)

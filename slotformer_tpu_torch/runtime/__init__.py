@@ -8,6 +8,7 @@ from .io import (
     glob_all,
     load_obj,
     mkdir_or_exist,
+    read_all_lines,
     read_img,
     save_video,
     strip_suffix,
@@ -28,6 +29,7 @@ __all__ = [
     "Dataset", "MeanMetric", "MeterBank", "ScheduledOptimizer",
     "build_optimizer", "cosine_anneal", "cosine_annealing_warmup",
     "default_collate", "dump_obj", "glob_all", "graft", "latest_checkpoint",
-    "load_checkpoint", "load_obj", "load_params", "mkdir_or_exist", "read_img",
+    "load_checkpoint", "load_obj", "load_params", "mkdir_or_exist",
+    "read_all_lines", "read_img",
     "save_checkpoint", "save_video", "strip_suffix", "symlink_force",
 ]

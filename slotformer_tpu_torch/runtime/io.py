@@ -89,6 +89,11 @@ def symlink_force(target: str, link: str) -> None:
 # image / video IO
 # ---------------------------------------------------------------------------
 
+def read_all_lines(path: str) -> List[str]:
+    with open(path, "r") as f:
+        return [ln.rstrip("\n") for ln in f]
+
+
 def read_img(path: str, to_float: bool = False) -> np.ndarray:
     """Read an image as RGB uint8 [H, W, 3] (float32 [0, 1] if to_float)."""
     from PIL import Image

@@ -67,7 +67,7 @@ class BaseMethod:
         if int(params.get("steps_per_call", 1)) > 1:
             raise NotImplementedError(
                 "steps_per_call > 1 is not ported (it amortises per-call "
-                "dispatch of the JAX trainer); see ROADMAP.md Queue 1 item 7")
+                "dispatch of the JAX trainer); see ROADMAP.md Queue 1 item 8")
         self.model = model
         self.datamodule = datamodule
         self.params = params

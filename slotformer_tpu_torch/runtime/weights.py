@@ -5,7 +5,8 @@
 whose keys are the reference torch layout. It is the inverse of
 ``slotformer_tpu.runtime.torch_compat.stosavi`` / ``.slotformer`` (+
 ``savi_decoder``) / ``.dvae`` / ``.steve`` / ``.steve_slotformer`` (+
-``savi_cell`` with an LSTM predictor) / ``.aloe``; the re-encodings are:
+``savi_cell`` with an LSTM predictor) / ``.aloe`` / ``.phyre_readout`` /
+``.physion_readout``; the re-encodings are:
 
   * Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
   * LayerNorm ``scale`` -> ``weight``;
@@ -27,8 +28,8 @@ whose keys are the reference torch layout. It is the inverse of
     ``decoder``;
   * buffers that carry no learned value (the coordinate grids, the frozen
     sinusoidal PE, the token decoder's causal masks, Aloe's fixed tag
-    tokens, constants in JAX) are rebuilt from the config or the tree's
-    shapes.
+    tokens, PhysionReadout's slot pairs, constants in JAX) are rebuilt from
+    the config or the tree's shapes.
 
 ``runtime.checkpoint.load_checkpoint`` reads a reference-format
 ``{'state_dict': ...}`` file.
@@ -36,6 +37,7 @@ whose keys are the reference torch layout. It is the inverse of
 
 from __future__ import annotations
 
+from itertools import combinations
 from typing import Dict
 
 import numpy as np
@@ -215,17 +217,28 @@ def _token_decoder(sd: StateDict, prefix: str, tree: dict) -> None:
     _linear(sd, f"{prefix}.head", tree["head"])
 
 
+def _pos_enc(sd: StateDict, key: str, tree: dict, name: str, kind: str,
+             length: int, d_model: int) -> None:
+    """A PosEnc table: learned (from the tree) or the frozen sinusoid."""
+    if kind == "learnable":
+        sd[key] = _t(tree[name]["pos_embedding"])
+    elif kind:
+        sd[key] = get_sin_pos_enc(length, d_model)
+
+
 def _rollouter(sd: StateDict, tree: dict, rd: dict) -> None:
+    """SlotRollouter, or SingleStepSlotRollouter (``cond_len`` in ``rd``:
+    its temporal PE spans the context)."""
     _linear(sd, "rollouter.in_proj", tree["in_proj"])
     _linear(sd, "rollouter.out_proj", tree["out_proj"])
     _transformer_encoder(sd, "rollouter.transformer_encoder",
                          tree["transformer_encoder"])
+    d_model = rd.get("d_model", 128)
     for name, kind, length in (
-            ("enc_t_pe", rd.get("t_pe", "sin"), rd["history_len"]),
+            ("enc_t_pe", rd.get("t_pe", "sin"),
+             rd.get("cond_len", rd["history_len"])),
             ("enc_slots_pe", rd.get("slots_pe", ""), rd["num_slots"])):
-        if kind:
-            sd[f"rollouter.{name}"] = get_sin_pos_enc(
-                length, rd.get("d_model", 128))
+        _pos_enc(sd, f"rollouter.{name}", tree, name, kind, length, d_model)
 
 
 def _stosavi(tree: dict, cfg) -> StateDict:
@@ -285,15 +298,40 @@ def _aloe(tree: dict, cfg) -> StateDict:
     return sd
 
 
-_KINDS = {"StoSAVi": _stosavi, "SlotFormer": _slotformer, "dVAE": _dvae_model,
+def _phyre_readout(tree: dict, cfg) -> StateDict:
+    rd = cfg.readout_dict
+    sd: StateDict = {"CLS": _t(tree["CLS"])}
+    _linear(sd, "in_proj", tree["in_proj"])
+    _transformer_encoder(sd, "transformer_encoder", tree["transformer_encoder"])
+    _linear(sd, "cls_mlp.0", tree["cls_mlp_0"])
+    _linear(sd, "cls_mlp.2", tree["cls_mlp_1"])
+    _pos_enc(sd, "enc_t_pe", tree, "enc_t_pe", rd.get("t_pe", "sin"),
+             len(rd.get("sel_slots", (0, 3))), rd.get("d_model", 128))
+    return sd
+
+
+def _physion_readout(tree: dict, cfg) -> StateDict:
+    n = cfg.readout_dict.get("num_slots", 6)
+    sd: StateDict = {"comb_idx": torch.tensor(
+        list(combinations(range(n), 2)), dtype=torch.int64).reshape(-1)}
+    _linear(sd, "linear1", tree["linear1"])
+    _linear(sd, "linear2", tree["linear2"])
+    return sd
+
+
+_KINDS = {"StoSAVi": _stosavi, "SlotFormer": _slotformer,
+          "SingleStepSlotFormer": _slotformer, "dVAE": _dvae_model,
           "STEVE": _steve, "STEVESlotFormer": _steve_slotformer,
-          "CLEVRERAloe": _aloe}
+          "CLEVRERAloe": _aloe, "PHYREReadout": _phyre_readout,
+          "PhysionReadout": _physion_readout}
 
 
 def from_jax_params(tree: dict, model_kind: str, cfg) -> StateDict:
     """A JAX param tree of ``model_kind`` (a key of ``_KINDS``: 'StoSAVi',
-    'SlotFormer', 'dVAE', 'STEVE', 'STEVESlotFormer' or 'CLEVRERAloe', built
-    from the config ``cfg``) as the port's reference-layout state_dict."""
+    'SlotFormer', 'SingleStepSlotFormer', 'dVAE', 'STEVE',
+    'STEVESlotFormer', 'CLEVRERAloe', 'PHYREReadout' or 'PhysionReadout',
+    built from the config ``cfg``) as the port's reference-layout
+    state_dict."""
     if model_kind not in _KINDS:
         raise NotImplementedError(f"model {model_kind} is not ported yet")
     return _KINDS[model_kind](tree, cfg)

@@ -288,6 +288,18 @@ def test_fused_check_takes_the_obj3d_training_shape():
     assert k1._check(k, v, slots, _random_wp(rng(34), D, H), S)[:4] == (B, N, D, H)
 
 
+@pytest.mark.parametrize("B", [32, 128])
+def test_fused_check_takes_the_phyre_shapes(B):
+    """PHYRE SAVi's calls, (B, 4096, 128, 8, 256): 8 slots (the most the
+    kernel's slot side holds) at the training and extraction batch (32) and
+    the planning batch (128)."""
+    N, D, S, H = 4096, 128, 8, 256
+    assert S <= k1.S_PAD and k1.cluster_blocks(D, H) == 8
+    k, v = torch.empty(B, N, D), torch.empty(B, N, D)  # shapes only
+    slots = t(randn(rng(35), B, S, D))
+    assert k1._check(k, v, slots, _random_wp(rng(36), D, H), S)[:4] == (B, N, D, H)
+
+
 @pytest.mark.parametrize("case", ["d_not_multiple_of_4", "d_above_256",
                                   "misaligned_v"])
 def test_update_check_raises_on_what_the_kernel_refuses(case):

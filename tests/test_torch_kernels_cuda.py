@@ -187,6 +187,21 @@ def test_kernels_at_chunk_ragged_n_and_every_slot_count(cuda, N, S):
 
 
 @pytest.mark.cuda
+def test_kernel_at_the_phyre_training_shape(cuda):
+    """PHYRE SAVi's training and extraction call, (32, 4096, 128, 8, 256):
+    8 slots with k and v streamed from HBM over the whole card."""
+    B, N, D, S, H = 32, 4096, 128, 8, 256
+    k, v, slots, wp = _inputs(B, N, D, S, H, cuda, seed=8)
+    got = k1.fused_slot_attention(k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
+    again = k1.fused_slot_attention(k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
+    want = k1.fused_slot_attention_plain(k, v, slots, wp, 2, S, D ** -0.5, 1e-6)
+    torch.cuda.synchronize()
+    assert (got[0] - want[0]).abs().max().item() < 1e-4
+    assert (got[1] - want[1]).abs().max().item() < 1e-5
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,N", [(66, 4097), (33, 8200)])
 def test_kernels_at_the_large_batch_chunk(cuda, B, N):
     """B * N large enough for chunks of 512 pixels, the last one ragged, and

@@ -326,8 +326,9 @@ def test_steve_slotformer_method_grafts_steve_and_keeps_it_frozen(tmp_path):
 
 
 def test_build_method_lists_what_is_ported():
+    # every model of the JAX package has its method now: a name of none
     with pytest.raises(NotImplementedError, match="'STEVESlotFormer'"):
-        build_method(params=BaseParams(model="PhysionReadout"))
+        build_method(params=BaseParams(model="NoSuchModel"))
 
 
 # ---------------------------------------------------------------- CLI
