@@ -93,6 +93,29 @@ exits non-zero:
                ``cli.test_clevrer_vqa`` on the test split (every question
                answered) and on val (agreeing with the trainer's
                validation); eval rows/s.
+     Several ranks share the one card over gloo (NCCL refuses two ranks on
+     one device), each a spawned process that loads the kernels built above:
+     ddp_savi - (a) StoSAVi at the full ``stosavi_clevrer`` width, one step
+               of the global batch of 64 as 2 x 32 with the same
+               ``sample_eps`` as one process's step at B=64: losses and
+               ``grad_norm`` at 1e-5 relative, parameters at max |d| <
+               1e-4, K1 6 launches a rank; (b) ``cli.train --ddp`` at
+               world size 1 on NCCL, torchrun's environment set for the
+               child: 2 steps, the checkpoint reloads.
+     tp_slotformer - the full-width ``slotformer_clevrer`` SlotFormer at
+               tp_size 2 (in the same two ranks as (a)): one step of 8
+               clips with dropout 0 and ``vid_len`` differing across rows,
+               at (a)'s limits; its checkpoint loads in one process with
+               equal tensors, and one process's on the two ranks.
+     dryrun_multichip - ``entry.dryrun_multichip(4)``: a 2 x 2 grid, the
+               tiny SlotFormer's step against one process.
+     steps_per_call - SlotFormer at full width, 6 steps at B=64 with
+               ``steps_per_call`` 4 (4 in one call, 2 left over) against 6
+               single steps, deterministic cuDNN: equal parameters, the
+               log at the JAX trainer's windows.
+     convert  - the StoSAVi ``train`` trained, as a reference-layout
+               ``.pth``, through ``cli.convert_reference_ckpt``: its
+               slots on 4 videos equal the original weights'.
  12. obj3d_tree - a mini OBJ3D tree in a temporary directory, the working
                directory of the OBJ3D phases: 12 + 24 + 2 train/val/test
                videos of 51 64x64 PNG frames ``test_{i}.png``.
@@ -236,7 +259,8 @@ encode of the slots file that SlotFormer trains on and ``test_vp`` evaluates
 (SlotFormer itself launches no kernel of this repository: it reads K1's
 slots), STEVE's training and extraction, OBJ3D SAVi's training and
 extraction, the VQA phase's extraction and PHYRE's SAVi training,
-extraction and planning; its ``steve_case`` holds K1 at the STEVE
+extraction and planning, and the two ranks of ``ddp_savi`` (summed); its
+``steve_case`` holds K1 at the STEVE
 extraction shape, ``steve_train_case`` at STEVE's training shape, with its
 gradient check, ``obj3d_case`` at OBJ3D's, and ``phyre_train_case`` and
 ``phyre_plan_case`` at PHYRE's. Without a CUDA device it exits 1 and prints
@@ -321,6 +345,14 @@ STEVE_ROLLOUT_ATOL = 1e-4
 # DECODE_TIE at the first mismatch); the images within 1e-4 given the same
 # ids (hard) or the same gumbel uniforms (soft).
 DECODE_LOGITS_RTOL, DECODE_TIE, DECODE_IMG_ATOL = 1e-4, 1e-4, 1e-4
+# Several ranks against one process on the same global batch (the JAX
+# package's dryrun limits, __graft_entry__.py:196-215): losses and grad_norm
+# relative (float32 sums over other row splits and shard sums); parameters
+# after one Adam step, which moves each weight by about lr.
+RANKS_LOSS_RTOL, RANKS_PARAM_ATOL = 1e-5, 1e-4
+# the global batch of the two-rank StoSAVi step (stosavi_clevrer's) and of
+# the TP SlotFormer step
+DDP_SAVI_BATCH, TP_SF_BATCH = 64, 8
 PHYSION = dict(video_len=150, train=6, val=2, readout_train=2, readout_val=2,
                extract_batch=8, chunk_len=50)
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -829,6 +861,250 @@ def phase_train(ckp):
     if not ok:
         raise AssertionError("training check failed")
     return launches, last
+
+
+# ------------------------------------------------------- several ranks
+def _rank_cases(device, cases):
+    """A spawned rank: float32 without TF32, as the parent runs, then
+    ``entry.run_cases``."""
+    import torch
+
+    from slotformer_tpu_torch import entry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return entry.run_cases(device, cases)
+
+
+def _ranks_ok(rec):
+    return (rec["loss_rel_err"] < RANKS_LOSS_RTOL
+            and rec["max_param_diff"] < RANKS_PARAM_ATOL)
+
+
+def phase_two_ranks(workdir):
+    """Two ranks share the card over gloo (NCCL refuses two ranks on one
+    device), one spawned process each, loading the kernels this script
+    built: ``ddp_savi`` (a), StoSAVi at the full ``stosavi_clevrer`` width,
+    one step of the global batch of 64 (32 a rank) with the same
+    ``sample_eps`` as one process's step at B=64, K1 on every rank; and
+    ``tp_slotformer``, the full-width ``slotformer_clevrer`` SlotFormer at
+    tp_size 2, one step of 8 clips with dropout 0 and ``vid_len`` differing
+    across rows, its checkpoint loaded in one process and one process's
+    loaded on the grid. Returns K1's launches summed over the ranks."""
+    import numpy as np
+
+    from slotformer_tpu_torch.datasets import build_dataset
+    from slotformer_tpu_torch.parallel.launch import spawn
+    from slotformer_tpu_torch.runtime import load_params
+
+    savi = load_params(os.path.join(CONFIGS, "stosavi_clevrer_params.py"))
+    savi.dataset, savi.num_videos_train = "synthetic", 8
+    train_set, _ = build_dataset(savi)
+    T = savi.n_sample_frames
+    S, D = savi.slot_dict["num_slots"], savi.slot_dict["slot_size"]
+    B = DDP_SAVI_BATCH
+    idx = np.linspace(0, len(train_set) - 1, B).astype(int)
+    savi_batch = {
+        "img": np.stack([train_set[int(i)]["img"] for i in idx]),
+        "sample_eps": np.random.default_rng(0).standard_normal(
+            (B, T, S, D)).astype(np.float32)}
+    sf = load_params(os.path.join(CONFIGS, "slotformer_clevrer_params.py"))
+    sf.tp_size, sf.seed = 2, 0
+    sf.rollout_dict = dict(sf.rollout_dict, dropout=0.0)
+    sf.dec_dict = dict(sf.dec_dict, dec_ckp_path="")
+    Bs, Ts = TP_SF_BATCH, sf.n_sample_frames
+    r = np.random.default_rng(1)
+    sf_batch = {
+        "slots": r.standard_normal(
+            (Bs, Ts, sf.slot_dict["num_slots"], sf.slot_dict["slot_size"])
+        ).astype(np.float32),
+        "img": r.uniform(-1, 1, (Bs, Ts, *sf.resolution, 3)).astype(np.float32),
+        "vid_len": np.array([16, 12, 9, 16, 7, 14, 16, 11], np.int32)}
+    cases = [dict(params=savi.to_dict(), batches=[savi_batch],
+                  count_launches=True),
+             dict(params=sf.to_dict(), batches=[sf_batch],
+                  ckp_dir=os.path.join(workdir, "tp_slotformer"))]
+    device = "cuda:0" if DEVICE == "cuda" else DEVICE
+    recs, dt = wall_s(lambda: spawn(_rank_cases, 2, (cases,), "gloo",
+                                    [device, device]))
+    ddp = [rec[0] for rec in recs]
+    tp = [rec[1] for rec in recs]
+    launches = [rec["k1_launches"] for rec in ddp]
+    ok_ddp = (_ranks_ok(ddp[0]) and ddp[0]["grid"] == {"data": 2, "model": 1}
+              and launches == [T, T])
+    emit(phase="ddp_savi", check="two ranks on one card over gloo",
+         config="stosavi_clevrer", global_batch=B, rows_per_rank=B // 2,
+         loss_rel_err=ddp[0]["loss_rel_err"],
+         max_param_diff=ddp[0]["max_param_diff"],
+         tol=dict(loss_rel=RANKS_LOSS_RTOL, param_abs=RANKS_PARAM_ATOL),
+         losses=ddp[0]["losses"], k1_launches_by_rank=launches,
+         step_seconds_by_rank=[rec["seconds"] for rec in ddp],
+         spawn_seconds=dt, ok=ok_ddp)
+    whole = (sf.rollout_dict["ffn_dim"], sf.rollout_dict["d_model"])
+    ok_tp = (_ranks_ok(tp[0]) and tp[0]["grid"] == {"data": 1, "model": 2}
+             and tp[0]["linear1"] == ((whole[0] // 2, whole[1]), whole)
+             and tp[0]["ckp_grid_to_one"] and tp[0]["ckp_one_to_grid"])
+    emit(phase="tp_slotformer", check="tp_size 2 on one card over gloo",
+         config="slotformer_clevrer", batch=Bs,
+         vid_len=sf_batch["vid_len"].tolist(),
+         loss_rel_err=tp[0]["loss_rel_err"],
+         max_param_diff=tp[0]["max_param_diff"],
+         linear1_local_and_whole=tp[0]["linear1"],
+         checkpoint_tp2_to_one=tp[0]["ckp_grid_to_one"],
+         checkpoint_one_to_tp2=tp[0]["ckp_one_to_grid"],
+         losses=tp[0]["losses"],
+         step_seconds_by_rank=[rec["seconds"] for rec in tp], ok=ok_tp)
+    if not (ok_ddp and ok_tp):
+        raise AssertionError("two-rank checks failed")
+    return sum(launches)
+
+
+def phase_ddp_cli(workdir):
+    """``ddp_savi`` (b): ``python -m slotformer_tpu_torch.cli.train --ddp``
+    at world size 1 on NCCL, torchrun's environment set for the child: a few
+    StoSAVi steps at the full width on synthetic clips, and the checkpoint
+    reloads."""
+    import socket
+
+    import torch
+
+    from slotformer_tpu_torch.methods import build_method
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import (BaseDataModule, latest_checkpoint,
+                                              load_checkpoint)
+
+    cfg, params = derived_params(workdir, "stosavi_clevrer_params",
+                                 dataset="synthetic", num_videos_train=10,
+                                 num_videos_val=2, max_epochs=1,
+                                 print_iter=1, n_samples=0)
+    ckp = os.path.join(workdir, "ddp_cli")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    proc, dt = wall_s(lambda: subprocess.run(
+        [sys.executable, "-m", "slotformer_tpu_torch.cli.train", "--params",
+         cfg, "--ckp_path", ckp, "--ddp", "--san_check_val_step", "1",
+         "--device", DEVICE],
+        env=env, capture_output=True, text=True, timeout=600))
+    if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("cli.train --ddp failed")
+    log, train_log = _read_log(ckp)
+    last = latest_checkpoint(ckp)
+    ck = load_checkpoint(last)
+    torch.manual_seed(5)
+    fresh = build_method(model=build_model(params, device=DEVICE),
+                         datamodule=BaseDataModule(params, [0] * 64, None),
+                         params=params, ckp_path="")
+    fresh.load_ckp(last)
+    reloaded = fresh.it == ck["it"] and all(
+        torch.equal(v.cpu(), ck["state_dict"][k])
+        for k, v in fresh.model.state_dict().items())
+    steps = len(train_log)
+    ok = (steps >= 2 and _finite(log) and reloaded
+          and "grid={'data': 1, 'model': 1}" in proc.stdout)
+    emit(phase="ddp_savi", check="cli.train --ddp, world size 1, NCCL",
+         steps=steps, seconds=dt, checkpoint=os.path.basename(last),
+         reloaded=reloaded, last_train=train_log[-1] if train_log else None,
+         ok=ok)
+    if not ok:
+        raise AssertionError("cli.train --ddp check failed")
+
+
+def phase_dryrun_multichip():
+    """``entry.dryrun_multichip(4)``: four ranks on the one card over gloo,
+    a 2 x 2 grid, one training step of the tiny SlotFormer against one
+    process."""
+    from slotformer_tpu_torch import entry
+
+    recs, dt = wall_s(lambda: entry.dryrun_multichip(4))
+    ok = (recs[0]["grid"] == {"data": 2, "model": 2}
+          and all(r["linear1"] == ((16, 16), (32, 16)) for r in recs))
+    emit(phase="dryrun_multichip", n=4, grid=recs[0]["grid"],
+         max_param_diff=recs[0]["max_param_diff"],
+         loss_rel_err=recs[0]["loss_rel_err"], seconds=dt, ok=ok)
+    if not ok:
+        raise AssertionError("dryrun_multichip check failed")
+
+
+def phase_steps_per_call(slots_path, savi_ckp, workdir):
+    """SlotFormer at the full ``slotformer_clevrer`` width for one epoch of
+    6 steps at B=64 with ``steps_per_call`` 4 (4 in one call, 2 left over)
+    against 6 single steps from the same init (deterministic cuDNN for
+    both): the parameters equal, the log at the JAX trainer's windows."""
+    import torch
+
+    from slotformer_tpu_torch.cli import train as train_cli
+
+    runs = {}
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for k in (4, 1):
+            params = slotformer_params(slots_path, savi_ckp, max_epochs=1,
+                                       eval_interval=2, print_iter=1,
+                                       save_interval=1.0, train_batch_size=64,
+                                       steps_per_call=k, seed=0)
+            ckp = os.path.join(workdir, f"steps_per_call_{k}")
+            method, dt = wall_s(lambda: train_cli.run(
+                params, ckp, device=DEVICE, san_check_val_step=0))
+            runs[k] = (method, dt, [r["step"] for r in _read_log(ckp)[1]])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (fused, fused_s, fused_log), (single, single_s, single_log) = runs[4], runs[1]
+    a, b = fused.model.state_dict(), single.model.state_dict()
+    diff = max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+    equal = all(torch.equal(a[k], b[k]) for k in a)
+    windows = [it for it, inc in ((4, 4), (5, 1), (6, 1))
+               if it % fused.print_iter < inc]
+    ok = (fused.it == single.it == 6 and equal and fused_log == windows
+          and single_log == list(range(1, 7)))
+    emit(phase="steps_per_call", config="slotformer_clevrer", batch=64,
+         steps=fused.it, params_equal=equal, max_param_diff=diff,
+         logged_steps=fused_log, jax_windows=windows,
+         single_logged_steps=single_log, fused_fit_seconds=fused_s,
+         single_fit_seconds=single_s, ok=ok)
+    if not ok:
+        raise AssertionError("steps_per_call check failed")
+
+
+def phase_convert(workdir, savi_weight):
+    """The StoSAVi ``phase_train`` trained, written as a reference-layout
+    ``{'state_dict'}`` file, through ``cli.convert_reference_ckpt``; the
+    result loaded on the card encodes 4 synthetic videos through K1 to the
+    slots of the original weights."""
+    import torch
+
+    from slotformer_tpu_torch.cli import convert_reference_ckpt
+    from slotformer_tpu_torch.cli.extract_slots import extract_video_slots
+    from slotformer_tpu_torch.datasets import SyntheticVideoDataset
+    from slotformer_tpu_torch.models import build_model
+    from slotformer_tpu_torch.runtime import load_checkpoint, load_params
+
+    cfg = os.path.join(CONFIGS, "stosavi_clevrer_params.py")
+    params = load_params(cfg)
+    ref = os.path.join(workdir, "reference_stosavi.pth")
+    torch.save({"state_dict": load_checkpoint(savi_weight)["state_dict"]}, ref)
+    out = os.path.join(workdir, "converted_stosavi.pth")
+    _, dt = wall_s(lambda: convert_reference_ckpt.main(
+        ["--params", cfg, "--ref_ckpt", ref, "--save_path", out]))
+    ds = SyntheticVideoDataset("val", num_videos=4, video_len=12,
+                               resolution=params.resolution)
+    slots = {}
+    for name, path in (("original", savi_weight), ("converted", out)):
+        model = build_model(params, device=DEVICE)
+        model.load_state_dict(load_checkpoint(path)["state_dict"])
+        slots[name] = extract_video_slots(model, ds, 4, 12, seed=0)
+    equal = all((slots["original"][k] == slots["converted"][k]).all()
+                for k in slots["original"])
+    emit(phase="convert", source="reference-layout .pth of the trained "
+         "StoSAVi", seconds=dt, videos=len(slots["original"]),
+         slots_equal=bool(equal), ok=bool(equal))
+    if not equal:
+        raise AssertionError("convert check failed")
 
 
 def phase_rollout(slots_dict):
@@ -3496,6 +3772,12 @@ def main() -> int:
         # the VQA head reads slots of the StoSAVi and the SlotFormer trained
         # above
         vqa_launches = timed(phase_vqa, workdir, trained_savi, sf_weight)
+        # several ranks on the one card, steps_per_call, the converter
+        ddp_launches = timed(phase_two_ranks, workdir)
+        timed(phase_ddp_cli, workdir)
+        timed(phase_dryrun_multichip)
+        timed(phase_steps_per_call, slots_path, savi_ckp, workdir)
+        timed(phase_convert, workdir, trained_savi)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:
         # the shipped OBJ3D configs name their data and the pretrained SAVi
@@ -3574,6 +3856,7 @@ def main() -> int:
                                    obj3d_train=obj3d_train_launches,
                                    obj3d_extract=obj3d_extract_launches,
                                    vqa_extract=vqa_launches,
+                                   ddp_train=ddp_launches,
                                    phyre_train=phyre_train_launches,
                                    phyre_extract=phyre_extract_launches,
                                    phyre_plan=phyre_plan_launches),

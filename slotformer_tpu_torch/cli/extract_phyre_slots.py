@@ -25,6 +25,8 @@ import os
 
 import torch
 
+from ..parallel.mesh import RowShard, local_devices, replicas, spread_rows
+
 
 def _action_range(total: int, split: int, total_split: int):
     """The [start, end) actions of shard ``split`` of ``total_split`` (all
@@ -38,13 +40,14 @@ def _action_range(total: int, split: int, total_split: int):
 
 def extract_phyre_video_slots(model, dataset, save_root: str, args,
                               num_workers: int = 4) -> int:
-    """Encode the actions of ``dataset`` (a ``PHYREDataset``) with the StoSAVi
-    ``model`` on its device into ``save_root``; returns the actions
-    written."""
+    """Encode the actions of ``dataset`` (a ``PHYREDataset``) with the SAVi
+    ``model`` on its device, or with a list of its replicas
+    (``parallel.replicas``), a batch's rows spread over their devices, into
+    ``save_root``; returns the actions written."""
     from ..runtime import DataLoader
     from ..runtime.io import atomic_write_npy
 
-    device = model.init_latents.device
+    models = list(model) if isinstance(model, (list, tuple)) else [model]
     start, end = _action_range(len(dataset.video_info), args.split,
                                args.total_split)
     if args.split != -1:
@@ -65,10 +68,16 @@ def extract_phyre_video_slots(model, dataset, save_root: str, args,
     with torch.inference_mode():
         for batch in loader:
             idxs = batch["data_idx"]
-            gen = torch.Generator(device).manual_seed(int(idxs[0]))
-            vids = torch.from_numpy(batch["video"]).to(device)
-            _, slots, _, _ = model.encode(vids, generator=gen)
-            slots = slots.float().cpu().numpy()
+
+            def encode(_, m, lo, hi):
+                device = m.init_latents.device
+                gen = torch.Generator(device).manual_seed(int(idxs[0]))
+                if hi - lo < len(idxs):
+                    gen = RowShard(gen, len(idxs) // (hi - lo), lo // (hi - lo))
+                vids = torch.from_numpy(batch["video"][lo:hi]).to(device)
+                return m.encode(vids, generator=gen)[1].float()
+
+            slots = spread_rows(encode, models, len(idxs))
             for k, i in enumerate(idxs):
                 atomic_write_npy(slots[k, :int(batch["vid_len"][k])],
                                  os.path.join(save_root, f"{int(i):06d}.npy"))
@@ -99,6 +108,7 @@ def main(argv=None) -> dict:
     params = load_params(args.params)
     model = build_model(params, device=args.device)
     model.load_state_dict(load_checkpoint(args.weight)["state_dict"])
+    models = replicas(model, local_devices(args.device))
     train_set, val_set = build_dataset(params)
     stem = os.path.splitext(os.path.basename(args.params))[0]
     out = {}
@@ -113,7 +123,7 @@ def main(argv=None) -> dict:
                 os.path.dirname(os.path.abspath(args.weight)), f"{name}_slots"))
         print(f"[extract_phyre] split={name} actions={len(ds.video_info)}",
               flush=True)
-        extract_phyre_video_slots(model, ds, save_root, args,
+        extract_phyre_video_slots(models, ds, save_root, args,
                                   int(params.get("num_workers", 4)))
         out[name] = save_root
     return out

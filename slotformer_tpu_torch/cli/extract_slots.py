@@ -11,7 +11,10 @@ name ``cli/rollout_slots.py --task physion`` looks for.
 Videos are batched (``--batch_size``) and encoded in chunks of ``--chunk_len``
 frames with slot carry-over; a short tail chunk is padded to ``chunk_len``
 by repeating its last frame (the padded frames' slots are dropped), so every
-chunk has the same shape.
+chunk has the same shape. With ``--device cuda`` a batch's videos are spread
+over every visible card, one replica of the model on each (the rows do not
+divide the cards: every card encodes all of them), and the slots are those
+of one card: each replica draws the whole batch's noise and keeps its rows.
 
 Usage:
     python -m slotformer_tpu_torch.cli.extract_slots --params <cfg.py> \
@@ -28,17 +31,21 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..parallel.mesh import RowShard, local_devices, replicas, spread_rows
+
 
 def extract_video_slots(model, dataset, batch_size: int, chunk_len: int,
                         seed: int = 0) -> Dict[str, np.ndarray]:
     """Encode every video of ``dataset`` (``files`` + ``get_video``) with
-    ``model`` (StoSAVi or STEVE) on its device; StoSAVi's kernel noise comes
-    from a generator seeded with ``seed``. Returns {video_basename: [T, N, C]
-    float32}."""
+    ``model`` (StoSAVi or STEVE) on its device, or with a list of its
+    replicas (``parallel.replicas``) over theirs; StoSAVi's kernel noise
+    comes from a generator seeded with ``seed`` (one a replica). Returns
+    {video_basename: [T, N, C] float32}."""
     from ..models import STEVE
 
-    device = model.init_latents.device
-    gen = torch.Generator(device=device).manual_seed(seed)
+    models = list(model) if isinstance(model, (list, tuple)) else [model]
+    gens = [torch.Generator(device=m.init_latents.device).manual_seed(seed)
+            for m in models]
     dataset.load_video = True
     out: Dict[str, np.ndarray] = {}
     names = [os.path.basename(f) for f in dataset.files]
@@ -49,22 +56,28 @@ def extract_video_slots(model, dataset, batch_size: int, chunk_len: int,
             vids = [dataset.get_video(j)["video"] for j in idxs]
             # the reference datasets have one length per split; trim anyway
             T = min(v.shape[0] for v in vids)
-            batch = torch.from_numpy(
-                np.stack([v[:T] for v in vids]).astype(np.float32)).to(device)
-            all_slots, carry = [], None
-            for c0 in range(0, T, chunk_len):
-                chunk = batch[:, c0:c0 + chunk_len]
-                pad = chunk_len - chunk.shape[1] if c0 > 0 else 0
-                if pad:
-                    chunk = torch.cat(
-                        [chunk, chunk[:, -1:].expand(-1, pad, -1, -1, -1)], 1)
-                prev = (None, None) if carry is None else carry
-                if isinstance(model, STEVE):
-                    slots, _, _, carry = model.encode(chunk, *prev)
-                else:
-                    _, slots, _, carry = model.encode(chunk, *prev, generator=gen)
-                all_slots.append(slots[:, :slots.shape[1] - pad])
-            slots = torch.cat(all_slots, 1).cpu().numpy()  # [B, T, N, C]
+            videos = np.stack([v[:T] for v in vids]).astype(np.float32)
+
+            def encode(r, m, lo, hi):
+                gen = gens[r] if hi - lo == len(videos) else RowShard(
+                    gens[r], len(videos) // (hi - lo), lo // (hi - lo))
+                batch = torch.from_numpy(videos[lo:hi]).to(m.init_latents.device)
+                all_slots, carry = [], None
+                for c0 in range(0, T, chunk_len):
+                    chunk = batch[:, c0:c0 + chunk_len]
+                    pad = chunk_len - chunk.shape[1] if c0 > 0 else 0
+                    if pad:
+                        chunk = torch.cat(
+                            [chunk, chunk[:, -1:].expand(-1, pad, -1, -1, -1)], 1)
+                    prev = (None, None) if carry is None else carry
+                    if isinstance(m, STEVE):
+                        slots, _, _, carry = m.encode(chunk, *prev)
+                    else:
+                        _, slots, _, carry = m.encode(chunk, *prev, generator=gen)
+                    all_slots.append(slots[:, :slots.shape[1] - pad])
+                return torch.cat(all_slots, 1)  # [b, T, N, C]
+
+            slots = spread_rows(encode, models, len(videos))
             for k, j in enumerate(idxs):
                 out[names[j]] = slots[k].astype(np.float32)
             if (i // batch_size + 1) % 10 == 0:
@@ -108,6 +121,7 @@ def main(argv=None) -> str:
         params.dataset = f"physion_{subset}"
     model = build_model(params, device=args.device)
     model.load_state_dict(load_checkpoint(args.weight)["state_dict"])
+    models = replicas(model, local_devices(args.device))
 
     save_path = args.save_path
     if not save_path:
@@ -133,7 +147,7 @@ def main(argv=None) -> str:
     out = {}
     for split, ds in splits.items():
         print(f"[extract] split={split} videos={len(ds.files)}", flush=True)
-        out[split] = extract_video_slots(model, ds, args.batch_size,
+        out[split] = extract_video_slots(models, ds, args.batch_size,
                                          args.chunk_len, args.seed)
     dump_obj(out, save_path)
     print(f"[extract] saved -> {save_path}", flush=True)

@@ -27,17 +27,21 @@ import os.path as osp
 import numpy as np
 import torch
 
+from ..parallel.mesh import local_devices, replicas, spread_rows
+
 from ..datasets import phyre as phyre_data
 from .extract_phyre_slots import _action_range
 
 
 def rollout_split(model, dataset, save_root: str, args) -> int:
     """Roll out the actions of ``dataset`` (a ``PHYRESlotsDataset`` whose
-    ``seq_size`` is the video's length) with ``model`` on its device into
-    ``save_root``; returns the actions written."""
+    ``seq_size`` is the video's length) with ``model`` on its device, or
+    with a list of its replicas (``parallel.replicas``), a batch's rows
+    spread over their devices, into ``save_root``; returns the actions
+    written."""
     from ..runtime.io import atomic_write_npy
 
-    device = next(model.parameters()).device
+    models = list(model) if isinstance(model, (list, tuple)) else [model]
     start, end = _action_range(len(dataset), args.split, args.total_split)
     written = 0
     for i0 in range(start, end, args.bs):
@@ -53,10 +57,15 @@ def rollout_split(model, dataset, save_root: str, args) -> int:
                 pass
         if not found:
             continue
-        batch = torch.from_numpy(np.stack(slots)).to(device)
-        with torch.inference_mode():
-            pred = model.rollout(batch[:, :1], batch.shape[1] - 1)
-            full = torch.cat([batch[:, :1], pred], 1).float().cpu().numpy()
+        slots = np.stack(slots)
+
+        def roll(_, m, lo, hi):
+            batch = torch.from_numpy(slots[lo:hi]).to(next(m.parameters()).device)
+            with torch.inference_mode():
+                pred = m.rollout(batch[:, :1], batch.shape[1] - 1)
+                return torch.cat([batch[:, :1], pred], 1).float()
+
+        full = spread_rows(roll, models, len(slots))
         for k, i in enumerate(found):
             atomic_write_npy(full[k], osp.join(save_root, f"{i:06d}.npy"))
         written += len(found)
@@ -86,6 +95,7 @@ def main(argv=None) -> dict:
     params.loss_dict["rollout_len"] = params.video_len - 1
     model = build_model(params, device=args.device)
     model.load_state_dict(load_checkpoint(args.weight)["state_dict"])
+    models = replicas(model, local_devices(args.device))
     stem = os.path.splitext(os.path.basename(args.params))[0]
     out = {}
     for split in ("val", "train"):
@@ -100,7 +110,7 @@ def main(argv=None) -> dict:
             symlink_force(save_root, osp.join(
                 osp.dirname(osp.abspath(args.weight)), f"{split}_slots"))
         print(f"[rollout_phyre] split={split} actions={len(ds)}", flush=True)
-        rollout_split(model, ds, save_root, args)
+        rollout_split(models, ds, save_root, args)
         out[split] = save_root
     return out
 

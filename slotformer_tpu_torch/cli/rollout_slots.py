@@ -32,17 +32,20 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..parallel.mesh import local_devices, replicas, spread_rows
+
 
 def interleaved_rollout(model, slots_dict: Dict[str, np.ndarray],
                         obs_frames: int, target_len: int, history_len: int,
                         frame_offset: int, batch_size: int = 8
                         ) -> Dict[str, np.ndarray]:
     """Extend every [obs, N, C] slot sequence to [target_len, N, C] with the
-    SlotFormer ``model`` on its device."""
+    SlotFormer ``model`` on its device, or with a list of its replicas
+    (``parallel.replicas``), a batch's rows spread over their devices."""
     if (target_len - obs_frames) % frame_offset:
         raise ValueError("frame_offset must divide the rollout span for "
                          "uniform phase lengths")
-    device = next(model.parameters()).device
+    models = list(model) if isinstance(model, (list, tuple)) else [model]
     names = list(slots_dict.keys())
     out = {}
     for i0 in range(0, len(names), batch_size):
@@ -52,15 +55,21 @@ def interleaved_rollout(model, slots_dict: Dict[str, np.ndarray],
         pad = np.zeros((obs.shape[0], target_len - obs_frames) + obs.shape[2:],
                        np.float32)
         ori = np.concatenate([obs, pad], axis=1)  # [B, target, N, C]
-        phase_preds = []
-        for off in range(frame_offset):
-            start = obs_frames - history_len * frame_offset + off
-            in_slots = ori[:, start::frame_offset]  # [B, hist+ro, N, C]
-            past = torch.from_numpy(
-                np.ascontiguousarray(in_slots[:, :history_len])).to(device)
-            with torch.inference_mode():
-                pred = model.rollout(past, in_slots.shape[1] - history_len)
-            phase_preds.append(pred.cpu().numpy())
+
+        def phases(_, m, lo, hi):
+            """Each phase's rollout of rows [lo, hi)."""
+            device = next(m.parameters()).device
+            preds = []
+            for off in range(frame_offset):
+                start = obs_frames - history_len * frame_offset + off
+                in_slots = ori[lo:hi, start::frame_offset]  # [b, hist+ro, N, C]
+                past = torch.from_numpy(
+                    np.ascontiguousarray(in_slots[:, :history_len])).to(device)
+                with torch.inference_mode():
+                    preds.append(m.rollout(past, in_slots.shape[1] - history_len))
+            return tuple(preds)
+
+        phase_preds = spread_rows(phases, models, len(ori))
         # re-interleave: global step i -> phase i % offset, step i // offset
         pred = np.stack([phase_preds[i % frame_offset][:, i // frame_offset]
                          for i in range(target_len - obs_frames)], axis=1)
@@ -98,6 +107,7 @@ def main(argv=None) -> str:
     params.loss_dict["use_img_recon_loss"] = False
     model = build_model(params, device=args.device)
     model.load_state_dict(load_checkpoint(args.weight)["state_dict"])
+    models = replicas(model, local_devices(args.device))
 
     obs_frames, target_len = args.obs_frames, args.target_len
     slots_root, link_name = params.slots_root, "rollout_slots.pkl"
@@ -130,7 +140,7 @@ def main(argv=None) -> str:
         print(f"[rollout] split={split} videos={len(all_slots[split])}",
               flush=True)
         out[split] = interleaved_rollout(
-            model, all_slots[split], obs_frames, target_len,
+            models, all_slots[split], obs_frames, target_len,
             params.input_frames, params.frame_offset, args.batch_size)
     dump_obj(out, args.save_path)
     print(f"[rollout] saved -> {args.save_path}", flush=True)

@@ -6,8 +6,8 @@ reference (200 epochs ~ 160k steps, batch 128, d_model = slot_size).
 ``dec_dict['dec_ckp_path']`` names the trained SAVi checkpoint whose decoder
 (``decoder.*``, ``decoder_pos_embedding.*``) is grafted and frozen at the
 start of training: a ``.pth`` of this package's trainer or of the reference,
-read with ``torch.load``. JAX ``.ckpt.pkl`` files need converting first (not
-ported yet).
+read with ``torch.load``. JAX ``.ckpt.pkl`` files are converted first by
+``cli.convert_reference_ckpt``.
 """
 
 from slotformer_tpu_torch.runtime.params import BaseParams

@@ -4,8 +4,8 @@
 decoder (``trans_decoder.*``, grafted as ``decoder.*``) and dVAE
 (``dvae.*``) are grafted and frozen at the start of training: a ``.pth`` of
 this package's trainer or of the reference, read with ``torch.load``. JAX
-``.ckpt.pkl`` files need converting first (not ported yet). The directory
-of ``dvae_dict['dvae_ckp_path']`` names the token tree read when
+``.ckpt.pkl`` files are converted first by ``cli.convert_reference_ckpt``.
+The directory of ``dvae_dict['dvae_ckp_path']`` names the token tree read when
 ``use_img_recon_loss`` is on.
 """
 

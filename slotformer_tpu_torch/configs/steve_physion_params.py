@@ -8,8 +8,8 @@ Values match base_slots/configs/steve_physion_params.py in the reference:
 ``dvae_dict['dvae_ckp_path']`` names the dVAE checkpoint grafted under
 ``dvae.*`` at the start of training: a ``.pth`` of this package's trainer
 (the dVAE at its root) or of the reference, read with ``torch.load``. JAX
-``.ckpt.pkl`` files need converting first (not ported yet). Its directory,
-``dvae_physion_params``, names the token tree the loader reads
+``.ckpt.pkl`` files are converted first by ``cli.convert_reference_ckpt``.
+Its directory, ``dvae_physion_params``, names the token tree the loader reads
 (``TrainNpys-dvae_physion_params/``).
 """
 

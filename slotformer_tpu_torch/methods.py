@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .runtime.checkpoint import graft, load_checkpoint
-from .runtime.io import save_video
+from .parallel.mesh import gather_objects
 from .runtime.method import BaseMethod
 from .runtime.schedules import cosine_anneal
 
@@ -41,8 +41,7 @@ class SAViMethod(BaseMethod):
                                             for s in range(per_slot.shape[1])]
             rows.append(np.concatenate(panels, axis=2))  # side by side
         grid = np.clip(np.concatenate(rows, axis=1) * 0.5 + 0.5, 0, 1)
-        save_video(grid, os.path.join(self._vis_dir(), f"decomp_{self.it}.mp4"),
-                   fps=8)
+        self._save_video(grid, f"decomp_{self.it}.mp4")
 
 
 class SlotFormerMethod(BaseMethod):
@@ -57,9 +56,9 @@ class SlotFormerMethod(BaseMethod):
         reference ``.pth``) when it is set."""
         ckp = (self.params.get("dec_dict") or {}).get("dec_ckp_path", "")
         if ckp:
-            grafted = graft(self.model.state_dict(), load_checkpoint(ckp),
-                            ("decoder", "decoder_pos_embedding"))
-            self.model.load_state_dict(grafted)
+            self._load_full_state_dict(graft(
+                self._full_state_dict(), load_checkpoint(ckp),
+                ("decoder", "decoder_pos_embedding")))
         super().setup_state()
 
     def train_loss_kwargs(self, step: int) -> Dict[str, float]:
@@ -101,8 +100,7 @@ class SlotFormerMethod(BaseMethod):
         if not rows:
             return
         grid = np.clip(np.concatenate(rows, axis=1) * 0.5 + 0.5, 0, 1)
-        save_video(grid, os.path.join(self._vis_dir(), f"rollout_{self.it}.mp4"),
-                   fps=8)
+        self._save_video(grid, f"rollout_{self.it}.mp4")
 
 
 class STEVESlotFormerMethod(SlotFormerMethod):
@@ -119,9 +117,9 @@ class STEVESlotFormerMethod(SlotFormerMethod):
         graft (the SAVi decoder and its position embedding) does not run."""
         ckp = (self.params.get("dec_dict") or {}).get("dec_ckp_path", "")
         if ckp:
-            grafted = graft(self.model.state_dict(), load_checkpoint(ckp),
-                            {"decoder": "trans_decoder", "dvae": "dvae"})
-            self.model.load_state_dict(grafted)
+            self._load_full_state_dict(graft(
+                self._full_state_dict(), load_checkpoint(ckp),
+                {"decoder": "trans_decoder", "dvae": "dvae"}))
         BaseMethod.setup_state(self)
 
 
@@ -150,8 +148,7 @@ class dVAEMethod(BaseMethod):  # noqa: N801 (the reference's name)
                                generator=gen)["recon"][0].cpu().numpy()
             rows.append(np.concatenate([v["video"], recon], axis=2))
         grid = np.clip(np.concatenate(rows, axis=1) * 0.5 + 0.5, 0, 1)
-        save_video(grid, os.path.join(self._vis_dir(), f"recon_{self.it}.mp4"),
-                   fps=8)
+        self._save_video(grid, f"recon_{self.it}.mp4")
 
 
 class STEVEMethod(BaseMethod):
@@ -172,8 +169,8 @@ class STEVEMethod(BaseMethod):
                              "dvae_dict['dvae_ckp_path']")
         src = load_checkpoint(ckp)["state_dict"]
         src_prefix = "dvae" if any(k.startswith("dvae.") for k in src) else ""
-        self.model.load_state_dict(
-            graft(self.model.state_dict(), src, {"dvae": src_prefix}))
+        self._load_full_state_dict(
+            graft(self._full_state_dict(), src, {"dvae": src_prefix}))
         super().setup_state()
 
     @torch.no_grad()
@@ -192,8 +189,7 @@ class STEVEMethod(BaseMethod):
             panels = [video] + [masked[:, s] for s in range(masked.shape[1])]
             rows.append(np.concatenate(panels, axis=2))
         grid = np.clip(np.concatenate(rows, axis=1) * 0.5 + 0.5, 0, 1)
-        save_video(grid, os.path.join(self._vis_dir(), f"decomp_{self.it}.mp4"),
-                   fps=8)
+        self._save_video(grid, f"decomp_{self.it}.mp4")
 
 
 def score_questions(mc_rows: dict) -> Dict[str, list]:
@@ -227,16 +223,21 @@ class VQAMethod(BaseMethod):
         self.stats.reset()
         mc_rows = defaultdict(list)
         with torch.no_grad():
-            for batch, db, n in self._val_batches(san_check_step):
+            for batch, db, n, share in self._val_batches(san_check_step):
                 losses, (_, mc_right) = self.model.eval_step(db)
-                self._update_val_stats(losses, n)
+                self._update_val_stats(losses, n, share)
                 mc_right = mc_right.cpu().numpy()
                 for r in np.nonzero(~batch["is_cls"].astype(bool))[0]:
                     mc_rows[(int(batch["scene_index"][r]),
                              int(batch["question_id"][r]))].append(
                         (bool(mc_right[r]), int(batch["q_subtype"][r])))
+        # every data rank's rows, regrouped by question
+        merged = defaultdict(list)
+        for part in gather_objects(self.grid, dict(mc_rows)):
+            for key, rows in part.items():
+                merged[key] += rows
         extra = {f"{name}_acc": float(np.mean(v))
-                 for name, v in score_questions(mc_rows).items() if v}
+                 for name, v in score_questions(merged).items() if v}
         return self._finish_validation(san_check_step, extra=extra)
 
 
@@ -269,8 +270,9 @@ class ReadoutMethod(BaseMethod):
         probs = torch.sigmoid(logits.float()).reshape(-1).cpu().numpy()
         grid = np.clip(np.concatenate([it["img"] for it in items], axis=1)
                        * 0.5 + 0.5, 0, 1)
-        save_video(grid, os.path.join(self._vis_dir(), f"readout_{self.it}.mp4"),
-                   fps=8)
+        self._save_video(grid, f"readout_{self.it}.mp4")
+        if self.grid.rank != 0:
+            return
         with open(os.path.join(self._vis_dir(), f"readout_{self.it}.json"),
                   "w") as f:
             json.dump([{"gt": int(it["label"]), "pred": round(float(p), 4)}

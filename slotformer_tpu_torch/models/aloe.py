@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import data_mean
 from .nn import PosEnc, TransformerEncoder
 
 # the fixed 2-wide tags (requires_grad=False tensors in reference checkpoints)
@@ -137,18 +138,26 @@ class CLEVRERTransformerModel(nn.Module):
         return {"cls_answer_logits": self.cls_answer_mlp(cls_emb),
                 "mc_answer_logits": self.mc_answer_mlp(cls_emb)[:, 0]}
 
-    def loss_function(self, batch: dict, out: dict) -> Dict[str, torch.Tensor]:
+    def loss_function(self, batch: dict, out: dict,
+                      data_grid=None) -> Dict[str, torch.Tensor]:
         """CE over the descriptive rows, BCE over the multiple-choice rows,
-        each a mean over its own rows."""
+        each a mean over its own rows: over the global batch's rows with a
+        ``data_grid`` (each rank divides by the mean count over the data
+        group, forward only, so the ranks' mean loss and averaged gradient
+        are the global batch's)."""
         is_cls = batch["is_cls"].float()
         n_cls, n_mc = is_cls.sum(), (1.0 - is_cls).sum()
+        lo = 1.0
+        if data_grid is not None:
+            n_cls, n_mc = data_mean(data_grid, n_cls), data_mean(data_grid, n_mc)
+            lo /= data_grid.n_data
         label = batch["label"].long()
         ce = F.cross_entropy(out["cls_answer_logits"].float(), label,
                              reduction="none")
         bce = F.binary_cross_entropy_with_logits(
             out["mc_answer_logits"].float(), label.float(), reduction="none")
-        return {"cls_answer_loss": (ce * is_cls).sum() / n_cls.clamp(min=1.0),
-                "mc_answer_loss": (bce * (1.0 - is_cls)).sum() / n_mc.clamp(min=1.0)}
+        return {"cls_answer_loss": (ce * is_cls).sum() / n_cls.clamp(min=lo),
+                "mc_answer_loss": (bce * (1.0 - is_cls)).sum() / n_mc.clamp(min=lo)}
 
 
 class CLEVRERAloe(nn.Module):
@@ -161,6 +170,7 @@ class CLEVRERAloe(nn.Module):
         super().__init__()
         self.transformer_model = CLEVRERTransformerModel(
             transformer_dict, lang_dict, vision_dict, loss_dict)
+        self.data_grid = None  # parallel.Grid of a data-parallel trainer
 
     def forward(self, batch: dict) -> Dict[str, torch.Tensor]:
         return self.transformer_model(batch)
@@ -173,7 +183,8 @@ class CLEVRERAloe(nn.Module):
         """The losses of ``batch`` (call in ``train()`` mode: dropout on);
         ``generator`` is the trainer's and goes unused (dropout draws from
         the global RNG)."""
-        return self.calc_train_loss(batch, self(batch))
+        return self.transformer_model.loss_function(batch, self(batch),
+                                                    self.data_grid)
 
     def eval_step(self, batch: dict):
         """One forward's (``eval_loss``'s dict, ``eval_preds``'s pair)."""

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import rand
+
 GN_EPS = 1e-6
 
 
@@ -44,8 +46,7 @@ def gumbel_softmax(logits: torch.Tensor, tau: float = 1.0, hard: bool = False,
     tiny)``, then the softmax of ``(logits + g) / tau``."""
     tiny = torch.finfo(logits.dtype).tiny
     if uniform is None:
-        uniform = torch.rand(logits.shape, generator=generator,
-                             device=logits.device, dtype=logits.dtype)
+        uniform = rand(logits.shape, generator, logits.device, logits.dtype)
     u = uniform.to(logits.dtype).clamp_min(tiny)
     gumbels = -torch.log(-torch.log(u) + tiny)
     y_soft = torch.softmax((logits + gumbels) / tau, dim=dim)

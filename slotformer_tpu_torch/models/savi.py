@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import randn
 from .nn import ConvNormAct, DeconvNormAct, LayerNorm, SoftPositionEmbed
 from .predictor import build_predictor
 from .slot_attention import SlotAttention, SlotAttentionWMask
@@ -111,8 +112,7 @@ class SAViCell(nn.Module):
                     if generator is None:
                         raise ValueError("a stochastic encode needs sample_eps "
                                          "or a torch.Generator")
-                    eps_t = torch.randn(mu.shape, generator=generator,
-                                        device=mu.device, dtype=mu.dtype)
+                    eps_t = randn(mu.shape, generator, mu.device, mu.dtype)
                 kernels = mu + eps_t * torch.exp(0.5 * log_var)
         out = self.slot_attention(None, kernels, kv=kv_t, weights=sa_weights)
         post_slots, masks = out if self.with_mask else (out, None)

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.frozen_decoder_loss import frozen_decoder_recon_loss
+from ..parallel.mesh import data_mean
 from .nn import PosEnc, TransformerEncoder
 from .savi import SpatialBroadcastDecoder, _adopt
 
@@ -196,11 +197,24 @@ class SlotFormer(nn.Module):
         self.dec_chunk_frames = int(ld.get("dec_chunk_frames", 160))
         self.dec_recon_bf16 = bool(ld.get("dec_recon_bf16", False))
         self.dec_custom_bwd = bool(ld.get("dec_custom_bwd", False))
+        self.data_grid = None  # parallel.Grid of a data-parallel trainer
         if self.dec_custom_bwd and (dec_dict or {}).get("dec_norm", ""):
             raise ValueError("dec_custom_bwd supports norm-free decoders only")
 
     def _make_rollouter(self, rd: dict) -> nn.Module:
         return SlotRollouter(**rd)
+
+    def _masked_denom(self, count: torch.Tensor) -> torch.Tensor:
+        """``count + eps``, the denominator of a ``vid_len``-masked loss.
+        Under data parallelism (``data_grid``, set by the trainer) it is the
+        global batch's, as the JAX package takes it: each rank divides its
+        rows' sum by the mean count over the data group (forward only; the
+        count has no gradient), so the ranks' mean loss and averaged
+        gradient are the global batch's."""
+        if self.data_grid is None:
+            return count + self.eps
+        return (data_mean(self.data_grid, count)
+                + self.eps / self.data_grid.n_data)
 
     def decode(self, slots: torch.Tensor):
         """Decode slots through the (frozen) SAVi decoder."""
@@ -272,8 +286,9 @@ class SlotFormer(nn.Module):
         valid = self._valid(batch, B, T_ro, slots_err.device)
         if valid is not None:
             vw = valid[..., None, None].to(slots_loss.dtype)
-            loss_dict["slot_recon_loss"] = (slots_loss * vw).sum() / (
-                vw.sum() * slots_err.shape[-1] * slots_err.shape[-2] + self.eps)
+            loss_dict["slot_recon_loss"] = (slots_loss * vw).sum() / \
+                self._masked_denom(vw.sum() * slots_err.shape[-1]
+                                   * slots_err.shape[-2])
         else:
             loss_dict["slot_recon_loss"] = slots_loss.mean()
 
@@ -282,8 +297,8 @@ class SlotFormer(nn.Module):
             img_err = (out["recon_combined"] - gt_img) ** 2
             if valid is not None:
                 iw = valid[..., None, None, None].to(img_err.dtype)
-                loss_dict["img_recon_loss"] = (img_err * iw).sum() / (
-                    iw.sum() * img_err[0, 0].numel() + self.eps)
+                loss_dict["img_recon_loss"] = (img_err * iw).sum() / \
+                    self._masked_denom(iw.sum() * img_err[0, 0].numel())
             else:
                 loss_dict["img_recon_loss"] = img_err.mean()
         return loss_dict
@@ -316,7 +331,7 @@ class SlotFormer(nn.Module):
 
         sse = _sum_chunks(flat_slots, chunk_sse, nc)
         if w is not None:
-            return sse / (w.sum() * flat_img[0].numel() + self.eps)
+            return sse / self._masked_denom(w.sum() * flat_img[0].numel())
         return sse / flat_img.numel()
 
     def _bf16_img_recon_loss(self, batch: dict,
@@ -335,8 +350,8 @@ class SlotFormer(nn.Module):
         err = (recon.float() - flat_img) ** 2
         if w is None:
             return err.mean()
-        return (err.sum(dim=(1, 2, 3)) * w).sum() / (
-            w.sum() * flat_img[0].numel() + self.eps)
+        return (err.sum(dim=(1, 2, 3)) * w).sum() / self._masked_denom(
+            w.sum() * flat_img[0].numel())
 
     def _custom_bwd_img_recon_loss(self, batch: dict,
                                    pred_slots: torch.Tensor) -> torch.Tensor:
@@ -346,7 +361,7 @@ class SlotFormer(nn.Module):
         flat_slots, flat_img, w = self._flat_img_loss_inputs(batch, pred_slots)
         n_frames = flat_slots.shape[0]
         if w is not None:
-            denom = w.sum() * flat_img[0].numel() + self.eps
+            denom = self._masked_denom(w.sum() * flat_img[0].numel())
         else:
             w = flat_img.new_ones(n_frames, dtype=torch.float32)
             denom = float(flat_img.numel())

@@ -10,7 +10,9 @@ from .io import (
     mkdir_or_exist,
     read_all_lines,
     read_img,
+    save_img,
     save_video,
+    VideoReader,
     strip_suffix,
     symlink_force,
 )
@@ -30,6 +32,6 @@ __all__ = [
     "build_optimizer", "cosine_anneal", "cosine_annealing_warmup",
     "default_collate", "dump_obj", "glob_all", "graft", "latest_checkpoint",
     "load_checkpoint", "load_obj", "load_params", "mkdir_or_exist",
-    "read_all_lines", "read_img",
-    "save_checkpoint", "save_video", "strip_suffix", "symlink_force",
+    "read_all_lines", "read_img", "save_checkpoint", "save_img",
+    "save_video", "strip_suffix", "symlink_force", "VideoReader",
 ]

@@ -1,11 +1,14 @@
 """Host-side data pipeline: a copy of ``slotformer_tpu/runtime/datamodule.py``.
 
-Dataset protocol, DataLoader, BaseDataModule. One Python process: the loader
-produces whole batches of numpy arrays (the trainer moves them to the
-device), and worker processes become a thread pool (cv2/numpy decode
-releases the GIL) with double-buffered prefetch, so host IO overlaps device
-compute. The shuffle depends only on (seed, epoch), so the same seed gives
-the same batches as the JAX loader, and a resume replays the same order.
+Dataset protocol, DataLoader, BaseDataModule. The loader produces whole
+batches of numpy arrays (the trainer moves them to the device), and worker
+processes become a thread pool (cv2/numpy decode releases the GIL) with
+double-buffered prefetch, so host IO overlaps device compute. The shuffle
+depends only on (seed, epoch), so the same seed gives the same batches as
+the JAX loader, a resume replays the same order, and every rank of a
+data-parallel run agrees on it: each loads only its block of rows of each
+global batch (the whole batch when its rows do not divide the data axis, as
+the JAX trainer then replicates it).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -67,7 +70,10 @@ class DataLoader:
         num_workers: int = 4,
         collate_fn: Optional[Callable] = None,
         prefetch: int = 2,
+        shard: Tuple[int, int] = (1, 0),
     ):
+        """``batch_size`` is the global batch; ``shard`` = (data ranks,
+        this one's index): the block of each batch's rows this rank loads."""
         assert batch_size >= 1
         self.dataset = dataset
         self.batch_size = int(batch_size)
@@ -77,6 +83,7 @@ class DataLoader:
         self.num_workers = max(int(num_workers), 0)
         self.collate_fn = collate_fn or default_collate
         self.prefetch = max(int(prefetch), 1)
+        self.shard = tuple(shard)
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -98,10 +105,12 @@ class DataLoader:
     def _batches(self) -> List[np.ndarray]:
         order = self._index_order()
         nb = len(self)
-        return [
+        batches = [
             order[i * self.batch_size : (i + 1) * self.batch_size]
             for i in range(nb)
         ]
+        n, k = self.shard
+        return [b.reshape(n, -1)[k] if len(b) % n == 0 else b for b in batches]
 
     def _load_batch(self, idxs: Sequence[int], pool: Optional[ThreadPoolExecutor]):
         if pool is not None:
@@ -174,8 +183,9 @@ _END = object()
 class BaseDataModule:
     """Builds train/val loaders from params + datasets.
 
-    Mirrors the reference constructor signature (``use_ddp`` is accepted
-    and ignored: one process drives one card).
+    Mirrors the reference constructor signature; ``use_ddp`` is accepted
+    and ignored: a data-parallel run passes its ``grid`` (a
+    ``parallel.Grid``), and each loader then yields this data rank's rows.
     """
 
     def __init__(
@@ -185,6 +195,7 @@ class BaseDataModule:
         val_set: Optional[Dataset] = None,
         use_ddp: bool = False,
         collate_fn: Optional[Callable] = None,
+        grid=None,
     ):
         self.params = params
         self.train_set = train_set
@@ -192,6 +203,7 @@ class BaseDataModule:
         self.collate_fn = collate_fn
         nw = int(params.get("num_workers", 4))
         seed = int(params.get("seed", 0))
+        shard = (1, 0) if grid is None else (grid.n_data, grid.data_rank)
         self.train_loader = (
             DataLoader(
                 train_set,
@@ -201,6 +213,7 @@ class BaseDataModule:
                 seed=seed,
                 num_workers=nw,
                 collate_fn=collate_fn,
+                shard=shard,
             )
             if train_set is not None
             else None
@@ -219,6 +232,7 @@ class BaseDataModule:
                 seed=seed,
                 num_workers=nw,
                 collate_fn=collate_fn,
+                shard=shard,
             )
             if val_set is not None
             else None

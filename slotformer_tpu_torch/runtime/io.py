@@ -105,23 +105,85 @@ def read_img(path: str, to_float: bool = False) -> np.ndarray:
     return arr
 
 
+def save_img(arr: np.ndarray, path: str) -> None:
+    """Save an RGB image (uint8, or float in [0, 1]), creating the parent
+    directory; the format follows the suffix."""
+    from PIL import Image
+
+    mkdir_or_exist(os.path.dirname(path))
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr * 255.0, 0, 255).astype(np.uint8)
+    Image.fromarray(arr).save(path)
+
+
+class VideoReader:
+    """An open video (OpenCV), the reference ``nerv.utils.VideoReader``'s
+    surface: ``len()``, ``get_frame(idx)``, ``read_video()``,
+    ``cvt2frames(dir)``; frames RGB uint8 [H, W, 3]."""
+
+    def __init__(self, path: str, to_rgb: bool = True):
+        import cv2
+
+        self._cv2 = cv2
+        self.path = path
+        self.to_rgb = to_rgb
+        self.cap = cv2.VideoCapture(path)
+        if not self.cap.isOpened():
+            raise IOError(f"cannot open video: {path}")
+        self.num_frames = int(self.cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        self.fps = float(self.cap.get(cv2.CAP_PROP_FPS))
+        self.width = int(self.cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.height = int(self.cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+
+    def __len__(self) -> int:
+        return self.num_frames
+
+    def _cvt(self, frame: np.ndarray) -> np.ndarray:
+        if self.to_rgb:
+            frame = self._cv2.cvtColor(frame, self._cv2.COLOR_BGR2RGB)
+        return frame
+
+    def get_frame(self, idx: int) -> Optional[np.ndarray]:
+        self.cap.set(self._cv2.CAP_PROP_POS_FRAMES, idx)
+        ok, frame = self.cap.read()
+        return self._cvt(frame) if ok else None
+
+    def read_video(self) -> List[np.ndarray]:
+        self.cap.set(self._cv2.CAP_PROP_POS_FRAMES, 0)
+        frames = []
+        while True:
+            ok, frame = self.cap.read()
+            if not ok:
+                return frames
+            frames.append(self._cvt(frame))
+
+    def cvt2frames(self, frame_dir: str, target_shape: Optional[tuple] = None,
+                   filename_tmpl: str = "{:06d}.jpg") -> int:
+        """Write every frame to ``frame_dir`` (resized to ``target_shape``
+        by area averaging when given); returns the number of frames."""
+        mkdir_or_exist(frame_dir)
+        frames = self.read_video()
+        for i, fr in enumerate(frames):
+            if target_shape is not None:
+                fr = self._cv2.resize(fr, target_shape,
+                                      interpolation=self._cv2.INTER_AREA)
+            save_img(fr, os.path.join(frame_dir, filename_tmpl.format(i)))
+        return len(frames)
+
+    def close(self) -> None:
+        self.cap.release()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def read_video(path: str) -> List[np.ndarray]:
     """All frames of a video as RGB uint8 [H, W, 3] arrays."""
-    import cv2
-
-    cap = cv2.VideoCapture(path)
-    if not cap.isOpened():
-        raise IOError(f"cannot open video: {path}")
-    frames = []
-    try:
-        while True:
-            ok, frame = cap.read()
-            if not ok:
-                break
-            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
-    finally:
-        cap.release()
-    return frames
+    with VideoReader(path) as reader:
+        return reader.read_video()
 
 
 def read_video_frames(path: str,

@@ -13,6 +13,7 @@ import math
 from typing import Callable, List, Sequence
 
 import torch
+import torch.distributed as dist
 
 Schedule = Callable[[int], float]
 
@@ -50,15 +51,22 @@ def cosine_anneal(step: int, start_value: float, final_value: float,
 class ScheduledOptimizer:
     """Global-norm clip of each param group, then each group's LR from its
     schedule, then the torch optimizer's update: the order of the JAX
-    package's optax chains, one a group under ``multi_transform``."""
+    package's optax chains, one a group under ``multi_transform``.
+
+    Under tensor parallelism (``model_group``, the grid's model group) a
+    norm counts every parameter once: the squares of a sharded parameter
+    (one that carries ``tp_split``) are summed over the model group, a
+    replicated one's are counted on this rank alone."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 schedules: Sequence[Schedule], clip_grad: float):
+                 schedules: Sequence[Schedule], clip_grad: float,
+                 model_group=None):
         if len(schedules) != len(optimizer.param_groups):
             raise ValueError("one schedule per param group")
         self.optimizer = optimizer
         self.schedules = list(schedules)
         self.clip_grad = clip_grad
+        self.model_group = model_group
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -73,10 +81,10 @@ class ScheduledOptimizer:
         without a gradient count for nothing."""
         group_norms = []
         for group, schedule in zip(self.optimizer.param_groups, self.schedules):
-            grads = [p.grad for p in group["params"] if p.grad is not None]
+            ps = [p for p in group["params"] if p.grad is not None]
+            grads = [p.grad for p in ps]
             if grads:
-                norm = torch.linalg.vector_norm(
-                    torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+                norm = self._norm(ps)
                 group_norms.append(norm)
                 if self.clip_grad > 0:
                     # optax.clip_by_global_norm: g * max_norm / norm when
@@ -90,6 +98,19 @@ class ScheduledOptimizer:
             return torch.zeros(())
         return torch.linalg.vector_norm(torch.stack(group_norms))
 
+    def _norm(self, ps: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradients of ``ps``."""
+        norms = torch.stack([torch.linalg.vector_norm(p.grad) for p in ps])
+        if self.model_group is None:
+            return torch.linalg.vector_norm(norms)
+        sharded = torch.tensor([hasattr(p, "tp_split") for p in ps],
+                               device=norms.device)
+        sq = norms.square()
+        parts = torch.stack([sq[~sharded].sum(), sq[sharded].sum()])
+        total = parts[1].clone()
+        dist.all_reduce(total, group=self.model_group)
+        return (parts[0] + total).sqrt()
+
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
@@ -101,7 +122,8 @@ class ScheduledOptimizer:
 
 
 def build_optimizer(params_cfg, model: torch.nn.Module, total_steps: int,
-                    frozen_prefixes: Sequence[str] = ()) -> ScheduledOptimizer:
+                    frozen_prefixes: Sequence[str] = (),
+                    model_group=None) -> ScheduledOptimizer:
     """The reference training optimizer stack over ``model``'s parameters.
 
       * Adam, or AdamW (decoupled decay) for ``optimizer='adamw'`` or Adam
@@ -117,7 +139,8 @@ def build_optimizer(params_cfg, model: torch.nn.Module, total_steps: int,
       * parameters under ``frozen_prefixes`` get ``requires_grad=False`` and
         stay out of the optimizer.
 
-    ``total_steps`` counts optimizer steps (loader steps // accum_grad).
+    ``total_steps`` counts optimizer steps (loader steps // accum_grad);
+    ``model_group``: see ``ScheduledOptimizer``.
     """
     lr = float(params_cfg.lr)
     warmup_steps = int(float(params_cfg.get("warmup_steps_pct", 0.0)) * total_steps)
@@ -152,4 +175,4 @@ def build_optimizer(params_cfg, model: torch.nn.Module, total_steps: int,
         opt = torch.optim.SGD(groups, weight_decay=weight_decay)
     else:
         raise NotImplementedError(f"optimizer {opt_name}")
-    return ScheduledOptimizer(opt, schedules, clip_grad)
+    return ScheduledOptimizer(opt, schedules, clip_grad, model_group)
