@@ -1,0 +1,264 @@
+"""Traffic kind ``train``: the trainer's own step (``BaseMethod._train_step``
+of the configuration's method) over a pool of distinct collated batches
+made from the seed, at the configuration's published batch.
+
+Set-up builds one method object (model, optimizer, noise generator) from
+seeded weights, grafts what the method grafts from a file written from the
+same weights, and takes its first ``check_steps`` steps through the same
+call and feed as the window, on different batches; these are the warm-up.
+The reference follows those steps from the same weights, batches and RNG
+states, once the window has closed and the program's state is freed.
+"""
+
+from __future__ import annotations
+
+import gc
+import os
+import tempfile
+import time
+from types import SimpleNamespace
+
+import torch
+
+from ..core import batch_dims, make_batches, reference_module, seeded_reference
+from ..program import port_model, port_params
+from ..reference.train import BETAS, Trainer
+from ..yardstick import count_flops
+from .common import Spans, Window, peak_bytes, precision, synchronize
+
+
+class _Loader:
+    def __init__(self, batch_size: int, steps_per_epoch: int):
+        self.batch_size = batch_size
+        self._len = steps_per_epoch
+
+    def __len__(self) -> int:
+        return self._len
+
+
+def _snapshot(model) -> dict:
+    return {n: q.detach().to("cpu", copy=True)
+            for n, q in model.named_parameters()}
+
+
+def _leaf_gap(prog: dict, ref: dict) -> float:
+    """The worst leaf's |‖prog‖ - ‖ref‖| over max(‖ref‖, the median leaf's
+    ‖ref‖)."""
+    norms = {n: float(ref[n].double().norm()) for n in ref}
+    med = float(torch.tensor(sorted(norms.values())).median())
+    worst = 0.0
+    for n in ref:
+        a = float(prog[n].double().norm())
+        worst = max(worst, abs(a - norms[n]) / max(norms[n], med, 1e-30))
+    return worst
+
+
+def build_program(job):
+    """(method, params, batch pool) of the cell, before any step."""
+    cell, dev, seed = job.cell, job.device, job.seed
+    cfg = cell.config
+    params = port_params(cell)
+    sd = seeded_reference(cell, seed, dev)[1]
+    model = port_model(params, dev)
+    job.mark("model")
+    graft = cfg.get("graft")
+    tmp = tempfile.mkdtemp(prefix="perfbench-")
+    if graft:
+        # the method grafts these weights from a file, as its users' runs do
+        path = os.path.join(tmp, "graft.pth")
+        torch.save({"state_dict": {k: v.cpu() for k, v in sd.items()
+                                   if k.split(".")[0] in graft["prefixes"]}}, path)
+        getattr(params, graft["dict"])[graft["key"]] = path
+        rest = {k: v for k, v in sd.items()
+                if k.split(".")[0] not in graft["prefixes"]}
+        missing = model.load_state_dict(rest, strict=False).missing_keys
+        if any(k.split(".")[0] not in graft["prefixes"] for k in missing):
+            raise RuntimeError(f"weights missing: {missing}")
+    else:
+        model.load_state_dict(sd)
+    from slotformer_tpu_torch import methods
+
+    B = int(params.train_batch_size)
+    dm = SimpleNamespace(train_loader=_Loader(B, int(cfg["steps_per_epoch"])),
+                         val_loader=None)
+    method = getattr(methods, cfg["method"])(
+        model, dm, params, ckp_path=os.path.join(tmp, "ckp"), seed=seed)
+    method.setup_state()
+    job.mark("method")
+    if graft:
+        os.remove(getattr(params, graft["dict"])[graft["key"]])
+    os.rmdir(tmp)
+    pool = make_batches(cfg["train_batch"], batch_dims(cell, B),
+                        int(cell.traffic["pool_batches"]), seed + 1, dev)
+    job.mark("inputs")
+    return method, params, pool
+
+
+def check_steps(job, method, pool) -> dict:
+    """The first steps through ``_train_step``: what the reference needs
+    to follow them and what the comparison reads from them."""
+    model = method.model
+    dev = job.device
+    n = int(job.cell.traffic["check_steps"])
+    rec = {"start": _snapshot(model), "rng": [], "loss": []}
+    for i in range(n):
+        rec["rng"].append((torch.cuda.get_rng_state(dev)
+                           if torch.device(dev).type == "cuda"
+                           else torch.get_rng_state(),
+                           method.generator.get_state()))
+        out = method._train_step(pool[i % len(pool)])
+        rec["loss"].append(float(out["total_loss"]))
+        if i == 0:
+            state = method.optimizer.optimizer.state
+            rec["grad1"] = {name: (state[q]["exp_avg"] / (1 - BETAS[0])).cpu()
+                            for name, q in model.named_parameters()
+                            if q in state}
+        job.mark(f"step {i + 1}")
+    rec["end"] = _snapshot(model)
+    return rec
+
+
+def reference_steps(job, pool, rec, mode: str = "float32", rows=None) -> dict:
+    """The reference's steps from the same weights, batches and RNG states,
+    in precision ``mode`` (``common.precision``); ``rows``: only the first
+    ``rows`` rows of each batch (a fault)."""
+    cell, dev = job.cell, job.device
+    cfg = cell.config
+    ref = seeded_reference(cell, job.seed, dev)[0]
+    total = int(cfg["params"]["max_epochs"]) * int(cfg["steps_per_epoch"])
+    trainer = Trainer(ref, cfg["params"], total, cfg.get("frozen_prefixes", ()))
+    start = _snapshot(ref)
+    cuda = torch.device(dev).type == "cuda"
+    out = {"loss": []}
+    with precision(mode, dev):
+        for i, (rng_global, rng_noise) in enumerate(rec["rng"]):
+            if cuda:
+                torch.cuda.set_rng_state(rng_global, dev)
+            else:
+                torch.set_rng_state(rng_global)
+            gen = torch.Generator(device=dev)
+            gen.set_state(rng_noise)
+            batch = {k: torch.from_numpy(v[:rows]).to(dev)
+                     for k, v in pool[i % len(pool)].items()}
+            step = trainer.step(batch, gen)
+            out["loss"].append(step["total"])
+            if i == 0:
+                out["grad1"] = {k: g.float().cpu() for k, g in step["grads"].items()}
+    out["start"], out["end"] = start, _snapshot(ref)
+    return out
+
+
+def readings(rec: dict, ref: dict) -> dict:
+    """The numbers compared: the worst step's relative loss gap, the worst
+    leaf's gap of the first gradient's norm, and of the norm of the
+    parameters' change over the steps. Entries whose first reference
+    gradient is under a thousandth of the median leaf's RMS gradient are
+    nought to rounding (a key's bias under the softmax), and Adam moves
+    them by round-off alone: they are left out of the change."""
+    loss_gap = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(rec["loss"], ref["loss"]))
+    g1 = ref["grad1"]
+    rms = sorted(float(g.double().pow(2).mean().sqrt()) for g in g1.values())
+    floor = 1e-3 * rms[len(rms) // 2]
+    moved = {n: g.abs() >= floor for n, g in g1.items()}
+    change_p = {n: (rec["end"][n] - rec["start"][n])[moved[n]] for n in g1
+                if moved[n].any()}
+    change_r = {n: (ref["end"][n] - ref["start"][n])[moved[n]] for n in g1
+                if moved[n].any()}
+    return {
+        "loss_gap": loss_gap,
+        "grad_gap": _leaf_gap({n: rec["grad1"].get(n, torch.zeros(1))
+                               for n in g1}, g1),
+        "change_gap": _leaf_gap(change_p, change_r),
+    }
+
+
+def flops_per_step(job, pool) -> int:
+    """FLOPs of one training step (forward and backward) of the reference
+    at the cell's shapes, counted on the meta device."""
+    cfg = job.cell.config
+    mod = reference_module(job.cell)
+    with torch.device("meta"):
+        ref = mod.build(cfg["params"])
+        trainer = Trainer(ref, cfg["params"], 1, cfg.get("frozen_prefixes", ()))
+        batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v[:1]).dtype)
+                 for k, v in pool[0].items()}
+
+    def step():
+        ref.train()
+        losses = ref.train_loss(batch, None)
+        total = sum(trainer.weights.get(k, 1.0) * v for k, v in losses.items())
+        torch.autograd.grad(total, trainer.params, allow_unused=True)
+
+    return count_flops(step)
+
+
+def k1_calls(cell, steps: int, batch: int):
+    """[(K1 call shape, calls)] of ``steps`` training steps."""
+    sa = cell.config.get("slot_attention")
+    if not sa:
+        return []
+    frames = int(cell.config["params"]["input_frames"])
+    return [(dict(sa, B=batch), steps * frames)]
+
+
+def run(job):
+    method, params, pool = build_program(job)
+    dev = job.device
+    rec = check_steps(job, method, pool)
+    synchronize(dev)
+    setup_s = time.time() - job.process_start
+    B = int(params.train_batch_size)
+    n0 = len(rec["loss"])
+
+    spans = Spans()
+    if job.trace and torch.device(dev).type == "cuda":
+        spans.wrap(method.model, "train_loss", "forward")
+        spans.wrap(method.optimizer, "step", "optimizer")
+    setup_peak = peak_bytes(dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def step(i):
+        method._train_step(pool[(n0 + i) % len(pool)])
+
+    win = Window(dev, job.seconds, job.trace).run(step)
+    peak = peak_bytes(dev)
+    layer = None
+    if job.trace:
+        layer = SimpleNamespace(
+            window=win, steps=win.steps,
+            spans={"forward": spans.ms("forward"),
+                   "backward": spans.between("forward", "optimizer"),
+                   "optimizer": spans.ms("optimizer")},
+            flops_per_step=lambda: flops_per_step(job, pool),
+            k1_calls=k1_calls(job.cell, win.steps, B))
+    del method, params
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    ref = reference_steps(job, pool, rec)
+    return SimpleNamespace(
+        setup_s=setup_s,
+        end_to_end={"train_clips_per_s": win.steps * B / win.elapsed,
+                    "train_peak_mem_gib": peak / 2 ** 30},
+        memory_peak_bytes=max(peak, setup_peak), attempted=win.steps, layer=layer,
+        readings=readings(rec, ref))
+
+
+def control_readings(job, mode: str = "tf32") -> dict:
+    """One seed's readings, no window: the program's check steps, the
+    control (the reference in precision ``mode``) and the half-batch fault,
+    each against the float32 reference."""
+    method, params, pool = build_program(job)
+    rec = check_steps(job, method, pool)
+    del method, params
+    gc.collect()
+    ref = reference_steps(job, pool, rec)
+    rows = pool[0][next(iter(pool[0]))].shape[0] // 2
+    out = {"program": readings(rec, ref), "mode": mode,
+           "control": readings(reference_steps(job, pool, rec, mode), ref),
+           "fault_half_batch": readings(reference_steps(job, pool, rec, rows=rows), ref)}
+    if torch.device(job.device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
