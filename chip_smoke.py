@@ -43,8 +43,8 @@ exits non-zero:
                ``cli.train.run`` (what ``python -m slotformer_tpu_torch.cli.train``
                runs) for one epoch at B=64, checking the K1 launch count,
                finite losses and a checkpoint that reloads; then steps/s and
-               a profiled step (forward/backward/optimizer split, the
-               device idle share, K1 forward and backward shares). Its
+               a profiled step (forward/backward/optimizer split, K1
+               forward and backward shares). Its
                checkpoint encodes the videos of ``vqa``.
   7. rollout - ``SlotFormer.rollout(decode=True)`` at the full-width
                ``slotformer_clevrer`` config, B=16, 6 burn-in + 48 rollout
@@ -68,8 +68,8 @@ exits non-zero:
                decay ramp on (finite losses, the factor in the log, the
                decoder bit-equal to the grafted checkpoint's, a checkpoint
                that reloads); then steps/s, a profiled step (rollouter
-               forward, image loss, backward, optimizer, the device's idle
-               share, the largest kernels) and the time and peak memory of a
+               forward, image loss, backward, optimizer, the largest
+               kernels) and the time and peak memory of a
                step under each image-loss branch.
  10. test_vp - ``cli.test_vp.main`` on the val slots and the checkpoint just
                trained, 6 + 42 frames, batch 8, masks on: every metric
@@ -164,7 +164,7 @@ exits non-zero:
                param groups, a checkpoint that reloads; steps/s, peak
                memory, a float32 step beside a bf16 one, a profiled step
                (encoder, K1 forward, token decoder, backward, K1's
-               backward, optimizer, device idle); K1's gradient at the
+               backward, optimizer); K1's gradient at the
                training shape (48, 4096, 192, 6, 384) against plain
                autograd.
  21. steve_extract - that STEVE through ``cli.extract_slots`` on the
@@ -186,7 +186,7 @@ exits non-zero:
                video card against CPU.
  24. steve_decode - ``STEVESlotFormer.rollout(decode=True)`` for 2 frames of
                2 videos: 1024 KV-cached token steps an image, then the dVAE;
-               ms per image and per token step, the device idle share; one
+               ms per image and per token step, launches per step; one
                image card against CPU (teacher-forced logits, generated ids
                up to a tie, hard and soft images).
 
@@ -219,7 +219,7 @@ exits non-zero:
                --vid_len 11``: a file per action, K1 once a frame step a
                batch, the ``{split}_slots`` links the next config reads; 4
                actions card against CPU and against the plain K1;
-               actions/s and the device's idle share.
+               actions/s; the second of five shards, timed.
  29. train_slotformer_phyre - the full-width
                ``slotformer_phyre_params-fold0`` SingleStepSlotFormer (d256,
                8 layers, cond_len 6, 1 + 10 frames, B=64): one B=2 step card
@@ -1391,7 +1391,6 @@ def phase_train_slotformer(slots_path, savi_ckp, workdir):
                                      for i in range(4))
     step_ms = ro_ms + img_ms + bwd_ms + opt_ms
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     conv_ms = sum(e.self_device_time_total for e in kernels
                   if any(w in e.key.lower() for w in
                          ("conv", "cudnn", "dgrad", "wgrad", "winograd", "fft"))) / 1e3
@@ -1446,8 +1445,6 @@ def phase_train_slotformer(slots_path, savi_ckp, workdir):
                             img_loss_decoder_fwd_bwd_ms=img_ms,
                             backward_ms=bwd_ms, optimizer_ms=opt_ms,
                             decoder_share=img_ms / step_ms,
-                            device_busy_ms=device_ms,
-                            device_idle_share=1 - device_ms / step_ms,
                             conv_kernels_ms=conv_ms,
                             top_kernels_name_count_ms=top_kernels),
          step_by_branch=by_branch, ok=ok)
@@ -1667,8 +1664,8 @@ def _k1_step_check(phase, params, batch, seed, prepare=None):
 
 def _profiled_step(method, batch):
     """One train step of ``method`` on ``batch`` under ``torch.profiler``:
-    forward, backward and optimizer ms (CUDA events), the device's busy
-    time, K1's kernels and the largest kernels."""
+    forward, backward and optimizer ms (CUDA events), K1's kernels and the
+    largest kernels."""
     import torch
     from torch.autograd import DeviceType
 
@@ -1695,32 +1692,15 @@ def _profiled_step(method, batch):
     # device time of the kernels themselves (the CPU ops that launched them
     # carry the same time and are left out)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k1_ms = sum(e.self_device_time_total for e in kernels
                 if "fused_slot_attention_" in e.key) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return dict(forward_ms=fwd_ms, backward_ms=bwd_ms, optimizer_ms=opt_ms,
-                backward_share=bwd_ms / step_ms, device_busy_ms=device_ms,
-                device_idle_share=1 - device_ms / step_ms,
+                backward_share=bwd_ms / step_ms,
                 k1_forward_kernel_ms=k1_ms, k1_forward_share=k1_ms / step_ms,
                 top_kernels_name_count_ms=[
                     (e.key[:80], e.count, e.self_device_time_total / 1e3)
                     for e in top])
-
-
-def _device_busy(fn):
-    """(host ms of ``fn`` under ``torch.profiler``, ending in a
-    synchronisation; ms of device kernels in it)."""
-    import torch
-    from torch.autograd import DeviceType
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _, dt = wall_s(fn)
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
-    return 1e3 * dt, busy
 
 
 def phase_obj3d_tree(workdir):
@@ -1833,11 +1813,6 @@ def phase_obj3d_slots(workdir, savi_ckp):
         for split, ds in sets.items()})
     launches = k1.LAUNCHES
     dump_obj(slots, os.path.join(workdir, "data", "OBJ3D", "obj3d_slots.pkl"))
-    # the device's idle share over one batch of 8 val videos
-    val8 = build_dataset(params, val_only=True)
-    val8.files = val8.files[:bs]
-    prof_ms, busy_ms = _device_busy(lambda: extract_video_slots(
-        model, val8, bs, OBJ3D["chunk_len"]))
     frame_steps = sum(-(-len(ds.files) // bs) for ds in sets.values()) * T
     S, D = params.slot_dict["num_slots"], params.slot_dict["slot_size"]
     shapes_ok = all(s.shape == (T, S, D) and s.dtype == np.float32
@@ -1850,8 +1825,6 @@ def phase_obj3d_slots(workdir, savi_ckp):
     emit(phase="obj3d_slots", config="savi_obj3d_params", videos=n_videos,
          frames=T, chunk_len=OBJ3D["chunk_len"], seconds=dt,
          frames_per_s=n_videos * T / dt, png_read_seconds=read_s,
-         one_batch=dict(ms=prof_ms, device_busy_ms=busy_ms,
-                        device_idle_share=1 - busy_ms / prof_ms),
          k1_launches=launches,
          frame_steps=frame_steps, shapes_ok=shapes_ok, ok=ok)
     if not ok:
@@ -2574,7 +2547,6 @@ def phase_train_steve(workdir, dvae_ckp):
     dec_ms += ev[2].elapsed_time(ev[3])  # the loss on the logits
     step_ms = ev[0].elapsed_time(ev[6])
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k1_fwd_ms = sum(e.self_device_time_total for e in kernels
                     if "fused_slot_attention_" in e.key) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -2609,8 +2581,7 @@ def phase_train_steve(workdir, dvae_ckp):
                             k1_backward_ms=k1_bwd_ms,
                             k1_backward_share=k1_bwd_ms / step_ms,
                             k1_forward_share=k1_fwd_ms / step_ms,
-                            optimizer_ms=opt_ms, device_busy_ms=device_ms,
-                            device_idle_share=1 - device_ms / step_ms,
+                            optimizer_ms=opt_ms,
                             top_kernels_name_count_ms=[
                                 (e.key[:80], e.count, e.self_device_time_total / 1e3)
                                 for e in top]),
@@ -2681,7 +2652,6 @@ def phase_steve_extract(workdir, steve_ckp, k1_ms):
         run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k1_dev_ms = sum(e.self_device_time_total for e in kernels
                     if "fused_slot_attention_" in e.key) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
@@ -2715,10 +2685,8 @@ def phase_steve_extract(workdir, steve_ckp, k1_ms):
          k1_launches=launches, k1_ms_each_b8=k1_ms,
          training_run=dict(seconds=dt,
                            frames_per_s=len(train_set.files) * T / dt,
-                           device_busy_ms=busy_ms,
                            k1_device_ms=k1_dev_ms,
                            k1_share_of_run=k1_dev_ms / (1e3 * dt),
-                           device_idle_share=1 - busy_ms / (1e3 * dt),
                            top_kernels_name_count_ms=[
                                (e.key[:80], e.count, e.self_device_time_total / 1e3)
                                for e in top]),
@@ -2912,7 +2880,6 @@ def phase_steve_decode(model, cpu, given):
         with torch.profiler.profile(activities=acts) as prof:
             _, prof_dt = wall_s(lambda: model.decoder.generate(flat, window))
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     images = len(names) * pred_len
     recon = out["recon_combined"]
     shapes_ok = (tuple(recon.shape) == (len(names), pred_len, *model.resolution, 3)
@@ -2946,8 +2913,6 @@ def phase_steve_decode(model, cpu, given):
          images=images, tokens_per_image=steps, seconds=dt,
          ms_per_image=1e3 * dt / images, ms_per_token_step=1e3 * dt / steps,
          profiled=dict(token_steps=window, images=images, seconds=prof_dt,
-                       device_busy_ms=busy_ms,
-                       device_idle_share=1 - busy_ms / (1e3 * prof_dt),
                        kernel_launches_per_step=sum(e.count for e in kernels)
                        / window),
          shapes_ok=shapes_ok,
@@ -3219,8 +3184,8 @@ def phase_phyre_slots(workdir, savi_ckp):
     """That SAVi through ``cli.extract_phyre_slots`` (``--bs 32 --vid_len
     11``) over the val and train actions: one file per action, K1 once a
     frame step a batch, the ``{split}_slots`` links; one batch of 4 actions
-    card against CPU and against K1's plain version; actions/s and the
-    device's idle share. Returns the K1 launches."""
+    card against CPU and against K1's plain version; actions/s; the second
+    of five shards again, timed. Returns the K1 launches."""
     from unittest import mock
 
     import numpy as np
@@ -3255,12 +3220,15 @@ def phase_phyre_slots(workdir, savi_ckp):
         os.path.dirname(savi_ckp), f"{s}_slots")) == os.path.realpath(dirs[s])
         for s in n)
 
-    # the device's share of a run: the second of five shards again, into
-    # another directory (shard 0 would move the links)
+    # the sharded path: the second of five shards again, into another
+    # directory (shard 0 would move the links)
     shard = argv[:argv.index("--save_path") + 1] + [
         os.path.join("data", "PHYRE_shard")] + argv[argv.index("--bs"):] + [
         "--split", "1", "--total_split", "5"]
-    prof_ms, busy_ms = _device_busy(lambda: extract_phyre_slots.main(shard))
+    shard_dirs, shard_dt = wall_s(lambda: extract_phyre_slots.main(shard))
+    shard_ok = all(sorted(os.listdir(shard_dirs[s])) == [
+        f"{i:06d}.npy" for i in range(*extract_phyre_slots._action_range(
+            n[s], 1, 5))] for s in n)
 
     # one batch of 4 actions, card against CPU and against the plain K1
     model = build_model(params, device=DEVICE)
@@ -3281,15 +3249,15 @@ def phase_phyre_slots(workdir, savi_ckp):
     err_cpu = (got - want).abs().max().item()
     err_plain = (got - plain).abs().max().item()
     err_file = (saved - got).abs().max().item()
-    ok = (files_ok and shapes_ok and links_ok and launches == frame_steps
+    ok = (files_ok and shapes_ok and links_ok and shard_ok
+          and launches == frame_steps
           and max(err_cpu, err_plain, err_file) <= PHYRE_SLOTS_ATOL)
     emit(phase="phyre_slots", config="savi_phyre_params-fold0", batch=bs,
          frames=T, actions=n, seconds=dt, actions_per_s=sum(n.values()) / dt,
          frames_per_s=sum(n.values()) * T / dt, k1_launches=launches,
          frame_steps=frame_steps,
          k1_shape=dict(zip("BNDSH", PHYRE_K1_TRAIN_SHAPE)),
-         one_shard_of_5=dict(ms=prof_ms, device_busy_ms=busy_ms,
-                             device_idle_share=1 - busy_ms / prof_ms),
+         one_shard_of_5=dict(seconds=shard_dt, files_ok=shard_ok),
          card_vs_cpu=dict(actions=vids.shape[0], frames=T,
                           max_abs_err_vs_cpu=err_cpu,
                           max_abs_err_vs_plain_k1=err_plain,
@@ -3479,8 +3447,8 @@ def phase_train_readout_phyre(workdir):
 
 def phase_plan_phyre(workdir, savi_ckp, sf_ckp, readout_ckp):
     """``cli.test_phyre_planning --bs 128`` over the 25 eval tasks x 256
-    actions of the stand-in in two shards (the second under the profiler,
-    for the device's idle share), then ``--collect``: every action scored
+    actions of the stand-in in two shards (the second timed on its own),
+    then ``--collect``: every action scored
     or marked invalid, K1 once a batch at (128, 4096, 128, 8, 256), AUCCESS;
     actions/s; one batch's confidences card against CPU. Returns K1's
     launches."""
@@ -3507,8 +3475,7 @@ def phase_plan_phyre(workdir, savi_ckp, sf_ckp, readout_ckp):
     (_, stats0), dt0 = wall_s(lambda: plan.main(argv + ["--split", "0"]))
     launches = k1.LAUNCHES
     out = {}
-    prof_ms, busy_ms = _device_busy(
-        lambda: out.update(s1=plan.main(argv + ["--split", "1"])[1]))
+    _, dt1 = wall_s(lambda: out.update(s1=plan.main(argv + ["--split", "1"])[1]))
     launches_all = k1.LAUNCHES
     score, _ = plan.main(["--collect", stats0["save_path"], "--total_split", "2"])
     conf = np.load(os.path.join(stats0["save_path"], "all_conf.npy"))
@@ -3563,9 +3530,7 @@ def phase_plan_phyre(workdir, savi_ckp, sf_ckp, readout_ckp):
                      seconds=dt0, actions_per_s=stats0["pairs"] / dt0,
                      scored_per_s=stats0["scored"] / dt0, k1_launches=launches,
                      batches=batches0),
-         shard1_profiled=dict(pairs=out["s1"]["pairs"], ms=prof_ms,
-                              device_busy_ms=busy_ms,
-                              device_idle_share=1 - busy_ms / prof_ms),
+         shard1=dict(pairs=out["s1"]["pairs"], seconds=dt1),
          score_batch_ms_device_only=batch_ms,
          device_only_actions_per_s=1e3 * bs / batch_ms,
          scored=scored, invalid=int((~valid).sum()), auccess=score,

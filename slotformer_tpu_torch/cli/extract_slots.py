@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import RowShard, local_devices, replicas, spread_rows
+from ..trace import span
 
 
 def extract_video_slots(model, dataset, batch_size: int, chunk_len: int,
@@ -53,10 +54,12 @@ def extract_video_slots(model, dataset, batch_size: int, chunk_len: int,
     with torch.inference_mode():
         for i in range(0, n_videos, batch_size):
             idxs = range(i, min(i + batch_size, n_videos))
-            vids = [dataset.get_video(j)["video"] for j in idxs]
-            # the reference datasets have one length per split; trim anyway
-            T = min(v.shape[0] for v in vids)
-            videos = np.stack([v[:T] for v in vids]).astype(np.float32)
+            with span("extract.load"):
+                vids = [dataset.get_video(j)["video"] for j in idxs]
+                # the reference datasets have one length per split; trim
+                # anyway
+                T = min(v.shape[0] for v in vids)
+                videos = np.stack([v[:T] for v in vids]).astype(np.float32)
 
             def encode(r, m, lo, hi):
                 gen = gens[r] if hi - lo == len(videos) else RowShard(

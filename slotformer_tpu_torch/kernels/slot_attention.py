@@ -34,6 +34,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..trace import span
+
 S_PAD = 8  # the kernel's slot capacity
 LN_EPS = 1e-6
 WP_KEYS = (
@@ -265,7 +267,7 @@ class _FusedSlotAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_slots, g_attn):
-        with torch.enable_grad():
+        with span("k1.backward"), torch.enable_grad():
             inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
             k, v, slots, *w = inputs
             out = fused_slot_attention_plain(

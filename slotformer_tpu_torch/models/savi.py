@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import randn
+from ..trace import span
 from .nn import ConvNormAct, DeconvNormAct, LayerNorm, SoftPositionEmbed
 from .predictor import build_predictor
 from .slot_attention import SlotAttention, SlotAttentionWMask
@@ -225,9 +226,10 @@ def encode_frames(model: nn.Module, img: torch.Tensor,
     sa_weights = cell.slot_attention.packed_weights()
     steps = []
     for t in range(T):
-        eps_t = None if sample_eps is None else sample_eps[:, t]
-        carry, out = cell(carry, (k_all[t], v_all[t]), first and t == 0,
-                          eps_t, generator, sa_weights)
+        with span("savi.frame_step"):
+            eps_t = None if sample_eps is None else sample_eps[:, t]
+            carry, out = cell(carry, (k_all[t], v_all[t]), first and t == 0,
+                              eps_t, generator, sa_weights)
         steps.append(out)
     kernel_dist, post_slots, masks = (
         None if parts[0] is None else torch.stack(parts, 1)

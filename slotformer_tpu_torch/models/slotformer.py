@@ -32,6 +32,7 @@ from torch import nn
 
 from ..ops.frozen_decoder_loss import frozen_decoder_recon_loss
 from ..parallel.mesh import data_mean
+from ..trace import span
 from .nn import PosEnc, TransformerEncoder
 from .savi import SpatialBroadcastDecoder, _adopt
 
@@ -118,15 +119,16 @@ class SlotRollouter(nn.Module):
             raise ValueError(f"wrong burn-in steps {x.shape[1]}, expected "
                              f"{self.history_len}")
         B, N = x.shape[0], self.num_slots
-        buf = x.reshape(B, self.history_len * N, x.shape[-1])
-        pe = self._pos_enc().to(buf.dtype)
-        preds = []
-        for _ in range(pred_len):
-            h = self.transformer_encoder(self.in_proj(buf) + pe)
-            pred = self.out_proj(h[:, -N:])
-            preds.append(pred)
-            buf = torch.cat([buf[:, N:], pred], dim=1)
-        return torch.stack(preds, 1)  # [B, pred_len, N, C]
+        with span("slotformer.rollouter"):
+            buf = x.reshape(B, self.history_len * N, x.shape[-1])
+            pe = self._pos_enc().to(buf.dtype)
+            preds = []
+            for _ in range(pred_len):
+                h = self.transformer_encoder(self.in_proj(buf) + pe)
+                pred = self.out_proj(h[:, -N:])
+                preds.append(pred)
+                buf = torch.cat([buf[:, N:], pred], dim=1)
+            return torch.stack(preds, 1)  # [B, pred_len, N, C]
 
 
 class SingleStepSlotRollouter(SlotRollouter):
@@ -152,21 +154,23 @@ class SingleStepSlotRollouter(SlotRollouter):
             raise ValueError(f"wrong burn-in steps {x.shape[1]}, expected 1")
         B, _, N, C = x.shape
         L = self.cond_len * N
-        buf = torch.cat([x.new_zeros(B, L - N, C), x.reshape(B, N, C)], 1)
-        pe = self._pos_enc().to(buf.dtype)
-        tok_pos = torch.arange(L, device=x.device)
-        preds = []
-        for step in range(pred_len):
-            # frames in the buffer so far: the observed one + step predictions
-            n_valid = min(1 + step, self.cond_len) * N
-            pad = None if n_valid == L else (
-                tok_pos < L - n_valid).expand(B, L)  # True = padded
-            h = self.transformer_encoder(self.in_proj(buf) + pe,
-                                         key_padding_mask=pad)
-            pred = self.out_proj(h[:, -N:])
-            preds.append(pred)
-            buf = torch.cat([buf[:, N:], pred], dim=1)
-        return torch.stack(preds, 1)
+        with span("slotformer.rollouter"):
+            buf = torch.cat([x.new_zeros(B, L - N, C), x.reshape(B, N, C)], 1)
+            pe = self._pos_enc().to(buf.dtype)
+            tok_pos = torch.arange(L, device=x.device)
+            preds = []
+            for step in range(pred_len):
+                # frames in the buffer so far: the observed one + step
+                # predictions
+                n_valid = min(1 + step, self.cond_len) * N
+                pad = None if n_valid == L else (
+                    tok_pos < L - n_valid).expand(B, L)  # True = padded
+                h = self.transformer_encoder(self.in_proj(buf) + pe,
+                                             key_padding_mask=pad)
+                pred = self.out_proj(h[:, -N:])
+                preds.append(pred)
+                buf = torch.cat([buf[:, N:], pred], dim=1)
+            return torch.stack(preds, 1)
 
 
 class SlotFormer(nn.Module):
@@ -403,12 +407,15 @@ class SlotFormer(nn.Module):
         out = {"gt_slots": slots[:, self.history_len:], "pred_slots": pred_slots}
         loss_dict = self.calc_train_loss(
             batch, out, loss_decay_factor=loss_decay_factor)
-        if branch == "custom":
-            img_loss = self._custom_bwd_img_recon_loss(batch, pred_slots)
-        elif branch == "bf16":
-            img_loss = self._bf16_img_recon_loss(batch, pred_slots)
-        else:
-            img_loss = self._chunked_img_recon_loss(batch, pred_slots, nc)
+        # where the loss goes in chunks, the decode's input gradient is
+        # taken here too, chunk by chunk
+        with span("slotformer.image_loss"):
+            if branch == "custom":
+                img_loss = self._custom_bwd_img_recon_loss(batch, pred_slots)
+            elif branch == "bf16":
+                img_loss = self._bf16_img_recon_loss(batch, pred_slots)
+            else:
+                img_loss = self._chunked_img_recon_loss(batch, pred_slots, nc)
         loss_dict["img_recon_loss"] = img_loss
         return loss_dict
 

@@ -56,6 +56,7 @@ from .checkpoint import load_checkpoint, save_checkpoint
 from .io import save_video, symlink_force
 from .meters import MeterBank
 from .schedules import ScheduledOptimizer, build_optimizer
+from ..trace import span
 
 
 def _to_cpu(obj):
@@ -128,8 +129,8 @@ class BaseMethod:
         self.grad_accum = int(params.get("accum_grad", 1))
         self.steps_per_call = max(int(params.get("steps_per_call", 1)), 1)
         self.loss_weights = params.loss_weights()
-        # torch.profiler trace of the steps [start, stop) under
-        # <ckp_path>/profile
+        # torch.profiler trace of the steps [start, stop), with the spans
+        # of trace.py, under <ckp_path>/profile
         self._profile_steps = params.get("profile_steps", None)
         self._profiler = None
 
@@ -200,18 +201,22 @@ class BaseMethod:
         self.model.train()
         batch = self._to_device(batch)
         extras = self.train_loss_kwargs(self.it)  # before the increment
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.use_fp16):
+        with span("step.forward"), torch.autocast(
+                self.device.type, dtype=torch.bfloat16, enabled=self.use_fp16):
             losses = self.model.train_loss(batch, generator=self._train_noise,
                                            **extras)
-        losses = {k: v.float() for k, v in losses.items()}
-        total = sum(self.loss_weights.get(k, 1.0) * v for k, v in losses.items())
-        (total / self.grad_accum).backward()
+        with span("step.backward"):
+            losses = {k: v.float() for k, v in losses.items()}
+            total = sum(self.loss_weights.get(k, 1.0) * v
+                        for k, v in losses.items())
+            (total / self.grad_accum).backward()
         self.it += 1
         if self.it % self.grad_accum == 0:
-            average_gradients(self.grid, self.optimizer.params)
-            self._grad_norm = self.optimizer.step(self.it // self.grad_accum - 1)
-            self.optimizer.zero_grad()
+            with span("step.optimizer"):
+                average_gradients(self.grid, self.optimizer.params)
+                self._grad_norm = self.optimizer.step(
+                    self.it // self.grad_accum - 1)
+                self.optimizer.zero_grad()
         losses["total_loss"] = total
         if self.grid.n_data > 1:  # the global batch's losses
             means = data_mean(self.grid, torch.stack(list(losses.values())))
