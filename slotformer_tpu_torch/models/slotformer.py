@@ -25,6 +25,7 @@ chunked > plain):
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -32,9 +33,16 @@ from torch import nn
 
 from ..ops.frozen_decoder_loss import frozen_decoder_recon_loss
 from ..parallel.mesh import data_mean
+from ..parallel.tp import (ColumnParallelLinear, ParallelMultiheadAttention,
+                           RowParallelLinear)
 from ..trace import span
 from .nn import PosEnc, TransformerEncoder
 from .savi import SpatialBroadcastDecoder, _adopt
+
+# modules whose forward runs a collective, which a graph of one process
+# cannot hold
+_TP_MODULES = (ColumnParallelLinear, RowParallelLinear,
+               ParallelMultiheadAttention)
 
 
 def _pick_chunks(n_frames: int, max_chunk: int) -> int:
@@ -81,10 +89,43 @@ def _sum_chunks(slots: torch.Tensor, chunk_loss: Callable, nc: int):
     return sum(chunk_loss(i, s).float() for i, s in enumerate(slots.chunk(nc)))
 
 
+class _Graphs:
+    """A rollouter's captured rollouts by key, least recently used first,
+    at most ``size``. A copy of the module (``copy.deepcopy``, pickling)
+    starts with none: the graphs read the original's weights."""
+
+    def __init__(self, size: int = 4):
+        self.size = size
+        self.by_key = OrderedDict()
+
+    def get(self, key):
+        if key in self.by_key:
+            self.by_key.move_to_end(key)
+        return self.by_key.get(key)
+
+    def put(self, key, graph):
+        self.by_key[key] = graph
+        while len(self.by_key) > self.size:
+            self.by_key.popitem(last=False)
+        return graph
+
+    def __reduce__(self):
+        return _Graphs, (self.size,)
+
+
 class SlotRollouter(nn.Module):
     """Sliding-window autoregressive rollout: [B, history_len, N, C] ->
     [B, pred_len, N, C]. The transformer encoder is bidirectional within the
-    window, so every step recomputes the whole window."""
+    window, so every step recomputes the whole window.
+
+    The ``pred_len`` steps are one fixed chain of small kernels with nothing
+    read back by the host, so where nothing needs the eager loop (no
+    autograd, no dropout, a CUDA input outside another capture, no
+    tensor-parallel collective) the loop runs as one CUDA graph: captured at
+    the first call for a key (input shape, dtype and device, ``pred_len``,
+    inference mode and the addresses of the weights, so that weights
+    updated in place are read at replay and replaced ones captured anew),
+    then replayed from a static input, the output cloned out of it."""
 
     def __init__(self, num_slots: int, slot_size: int, history_len: int,
                  t_pe: str = "sin", slots_pe: str = "", d_model: int = 128,
@@ -102,6 +143,7 @@ class SlotRollouter(nn.Module):
         self.out_proj = nn.Linear(d_model, slot_size)
         self.enc_t_pe = PosEnc(t_pe, history_len, d_model)
         self.enc_slots_pe = PosEnc(slots_pe, num_slots, d_model)
+        self._graphs = _Graphs()
 
     def _pos_enc(self) -> torch.Tensor:
         """[1, ctx_len*N, d_model]: temporal PE repeated per slot (+ slot PE
@@ -118,17 +160,57 @@ class SlotRollouter(nn.Module):
         if x.shape[1] != self.history_len:
             raise ValueError(f"wrong burn-in steps {x.shape[1]}, expected "
                              f"{self.history_len}")
-        B, N = x.shape[0], self.num_slots
         with span("slotformer.rollouter"):
-            buf = x.reshape(B, self.history_len * N, x.shape[-1])
-            pe = self._pos_enc().to(buf.dtype)
-            preds = []
-            for _ in range(pred_len):
-                h = self.transformer_encoder(self.in_proj(buf) + pe)
-                pred = self.out_proj(h[:, -N:])
-                preds.append(pred)
-                buf = torch.cat([buf[:, N:], pred], dim=1)
-            return torch.stack(preds, 1)  # [B, pred_len, N, C]
+            if self._graphable(x):
+                return self._replay(x, pred_len)
+            return self._rollout(x, pred_len)
+
+    def _rollout(self, x: torch.Tensor, pred_len: int) -> torch.Tensor:
+        """The loop, run eagerly or captured."""
+        B, N = x.shape[0], self.num_slots
+        buf = x.reshape(B, self.history_len * N, x.shape[-1])
+        pe = self._pos_enc().to(buf.dtype)
+        preds = []
+        for _ in range(pred_len):
+            h = self.transformer_encoder(self.in_proj(buf) + pe)
+            pred = self.out_proj(h[:, -N:])
+            preds.append(pred)
+            buf = torch.cat([buf[:, N:], pred], dim=1)
+        return torch.stack(preds, 1)  # [B, pred_len, N, C]
+
+    def _graphable(self, x: torch.Tensor) -> bool:
+        return (x.is_cuda and not torch.is_grad_enabled() and not self.training
+                and not torch.cuda.is_current_stream_capturing()
+                and not any(isinstance(m, _TP_MODULES) for m in self.modules()))
+
+    def _replay(self, x: torch.Tensor, pred_len: int) -> torch.Tensor:
+        weights = [*self.parameters(), *self.buffers()]
+        key = (tuple(x.shape), x.dtype, x.device, pred_len,
+               torch.is_inference_mode_enabled(),
+               tuple(w.data_ptr() for w in weights))
+        graph, static_in, static_out = (
+            self._graphs.get(key)
+            or self._graphs.put(key, self._capture(x, pred_len)))
+        static_in.copy_(x)
+        with span("slotformer.rollouter.graph"):
+            graph.replay()
+        return static_out.clone()
+
+    def _capture(self, x: torch.Tensor, pred_len: int):
+        """(graph, static input, static output) of the loop on ``x``'s
+        shape: one eager warm-up on a side stream, then the capture, as
+        ``torch.cuda.graphs`` documents it, on ``x``'s card (a replica's
+        need not be the current one)."""
+        static_in = x.clone(memory_format=torch.contiguous_format)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(x.device), torch.cuda.stream(side):
+            self._rollout(static_in, pred_len)
+            with torch.cuda.graph(graph, stream=side):
+                static_out = self._rollout(static_in, pred_len)
+        torch.cuda.current_stream(x.device).wait_stream(side)
+        return graph, static_in, static_out
 
 
 class SingleStepSlotRollouter(SlotRollouter):

@@ -10,6 +10,8 @@ span costs one check of the profiler's state. The spans:
   * ``step.forward``, ``step.backward``, ``step.optimizer``: the parts of
     a training step (``BaseMethod._train_step``);
   * ``slotformer.rollouter``: a rollout of ``pred_len`` steps;
+  * ``slotformer.rollouter.graph``: inside it, the replay of the rollout's
+    CUDA graph, where it runs as one;
   * ``slotformer.image_loss``: SlotFormer's image loss on the chunked,
     bfloat16 and custom branches;
   * ``savi.frame_step``: one frame of the temporal encode;

@@ -104,3 +104,43 @@ def test_weight_bridge_inverts_torch_compat():
     assert jax.tree.structure(back) == jax.tree.structure(params)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(a, b, rtol=0, atol=1e-7),
                  back, params)
+
+
+def _loop(m, x, pred_len):
+    """The rollouter's sliding-window loop written out: what every call
+    computes, on the graph path or off it."""
+    B, N = x.shape[0], m.num_slots
+    buf = x.reshape(B, m.history_len * N, x.shape[-1])
+    pe = m._pos_enc()
+    preds = []
+    for _ in range(pred_len):
+        pred = m.out_proj(m.transformer_encoder(m.in_proj(buf) + pe)[:, -N:])
+        preds.append(pred)
+        buf = torch.cat([buf[:, N:], pred], dim=1)
+    return torch.stack(preds, 1)
+
+
+@pytest.mark.parametrize("case", ["grad", "train", "cpu"])
+def test_rollouter_runs_eagerly_where_no_graph_can(case, monkeypatch):
+    """With gradients, in training mode (dropout draws) or on the CPU the
+    rollouter runs its loop eagerly: no graph is captured, the output is
+    the loop's, bit for bit, and with gradients it carries them."""
+    m = SlotRollouter(**ROLL).train(case == "train")
+    monkeypatch.setattr(SlotRollouter, "_capture", lambda *a: pytest.fail(
+        "captured a graph"))
+    x = t(randn(rng(6), 2, 4, 3, 8))
+    with torch.set_grad_enabled(case == "grad"):
+        assert not m._graphable(x)
+        torch.manual_seed(0)
+        got = m(x, 5)
+        torch.manual_seed(0)
+        want = _loop(m, x, 5)
+    assert len(m._graphs.by_key) == 0
+    assert torch.equal(got, want)
+    assert got.requires_grad == (case == "grad")
+    if case == "grad":
+        got.sum().backward()
+        assert m.in_proj.weight.grad.abs().sum() > 0
+    if case == "train":  # dropout drew: eval mode gives another answer
+        with torch.no_grad():
+            assert not torch.equal(got, m.eval()(x, 5))
