@@ -141,12 +141,15 @@ def make_weights(model, seed: int, device) -> Dict[str, "torch.Tensor"]:
 
 def batch_dims(cell: Cell, batch: int) -> Dict[str, int]:
     """The symbols a batch spec may use: B, T (clip frames), S (slots), D
-    (slot size), H, W (frame size) and the traffic's own whole numbers."""
+    (slot size), H, W (frame size), the configuration's own ``dims`` (such
+    as P, the patches of a frame, and V, the vocabulary) and the traffic's
+    own whole numbers."""
     p = cell.config["params"]
     dims = {"B": batch, "T": p["n_sample_frames"],
             "S": p["slot_dict"]["num_slots"],
             "D": p["slot_dict"]["slot_size"], "H": p["resolution"][0],
             "W": p["resolution"][1]}
+    dims.update(cell.config.get("dims", {}))
     dims.update({k: v for k, v in cell.traffic.items() if isinstance(v, int)})
     return dims
 
@@ -156,8 +159,10 @@ def make_batches(spec: dict, dims: Dict[str, int], count: int, seed: int,
     """``count`` collated batches as host numpy arrays, after ``spec``:
     ``{key: [dtype, [dim, ...], fill]}`` with dims whole numbers or symbols
     of ``dims``; fill ``uniform`` (U[-1, 1), frames), ``normal`` (slots),
-    ``index`` (the rows' numbers) or ``false``. Drawn on ``device`` from one
-    generator seeded with ``seed``, batch after batch."""
+    ``index`` (the rows' numbers), ``false``, or ``["randint", n]`` (whole
+    numbers uniform over [0, n), n a whole number or a symbol: token ids).
+    Drawn on ``device`` from one generator seeded with ``seed``, batch
+    after batch."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -166,7 +171,10 @@ def make_batches(spec: dict, dims: Dict[str, int], count: int, seed: int,
         b = {}
         for key, (dtype, shape, fill) in spec.items():
             shape = [dims[d] if isinstance(d, str) else int(d) for d in shape]
-            if fill == "uniform":
+            if isinstance(fill, list) and fill[0] == "randint":
+                high = dims[fill[1]] if isinstance(fill[1], str) else int(fill[1])
+                x = torch.randint(0, high, shape, generator=g, device=device)
+            elif fill == "uniform":
                 x = torch.rand(shape, generator=g, device=device).mul_(2).sub_(1)
             elif fill == "normal":
                 x = torch.randn(shape, generator=g, device=device)

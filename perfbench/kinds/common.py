@@ -123,9 +123,12 @@ def peak_bytes(device) -> int:
 @contextmanager
 def precision(mode: str, device):
     """Run the reference in ``mode``: ``float32`` (TF32 off), ``tf32``
-    (TF32 on for matrix products and convolutions: the control on the
-    card) or ``bfloat16`` (autocast: a lower precision the CPU has)."""
-    if mode not in ("float32", "tf32", "bfloat16"):
+    (TF32 on for matrix products and convolutions: the control of a
+    float32 cell on the card), ``bfloat16`` (autocast: a lower precision
+    the CPU has) or ``bfloat16_pure`` (TF32 off and no autocast here: the
+    caller holds the weights, inputs and Adam's state in bfloat16, the
+    control of a bfloat16 cell)."""
+    if mode not in ("float32", "tf32", "bfloat16", "bfloat16_pure"):
         raise ValueError(f"precision {mode!r}")
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"

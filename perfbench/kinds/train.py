@@ -8,6 +8,15 @@ same weights, and takes its first ``check_steps`` steps through the same
 call and feed as the window, on different batches; these are the warm-up.
 The reference follows those steps from the same weights, batches and RNG
 states, once the window has closed and the program's state is freed.
+
+A configuration's ``precision`` (``float32`` or ``bfloat16``) is the one the
+program trains in: ``bfloat16`` runs the trainer's own bf16 autocast
+(``use_fp16``, as ``cli/train.py --fp16`` sets it). The reference stays
+float32 with TF32 off; the control is the reference in TF32 for a float32
+cell, and wholly in bfloat16 (weights, activations and Adam's state, no
+float32 copy) for a bfloat16 one. Where the program draws dropout that the
+reference cannot replay (inside a fused attention), the reference draws its
+own, and the limits are set over that spread.
 """
 
 from __future__ import annotations
@@ -36,8 +45,20 @@ class _Loader:
         return self._len
 
 
+PRECISIONS = ("float32", "bfloat16")
+# the control of each precision (``common.precision``)
+CONTROL = {"float32": "tf32", "bfloat16": "bfloat16_pure"}
+
+
+def _precision(cfg: dict) -> str:
+    mode = cfg.get("precision", "float32")
+    if mode not in PRECISIONS:
+        raise ValueError(f"precision {mode!r}: the train kind runs {PRECISIONS}")
+    return mode
+
+
 def _snapshot(model) -> dict:
-    return {n: q.detach().to("cpu", copy=True)
+    return {n: q.detach().to("cpu", copy=True).float()
             for n, q in model.named_parameters()}
 
 
@@ -82,7 +103,8 @@ def build_program(job):
     dm = SimpleNamespace(train_loader=_Loader(B, int(cfg["steps_per_epoch"])),
                          val_loader=None)
     method = getattr(methods, cfg["method"])(
-        model, dm, params, ckp_path=os.path.join(tmp, "ckp"), seed=seed)
+        model, dm, params, ckp_path=os.path.join(tmp, "ckp"), seed=seed,
+        use_fp16=_precision(cfg) == "bfloat16")
     method.setup_state()
     job.mark("method")
     if graft:
@@ -118,15 +140,29 @@ def check_steps(job, method, pool) -> dict:
     return rec
 
 
-def reference_steps(job, pool, rec, mode: str = "float32", rows=None) -> dict:
+def reference_steps(job, pool, rec, mode: str = "float32",
+                    fault: str = "") -> dict:
     """The reference's steps from the same weights, batches and RNG states,
-    in precision ``mode`` (``common.precision``); ``rows``: only the first
-    ``rows`` rows of each batch (a fault)."""
+    in precision ``mode`` (``common.precision``), with one ``fault`` or
+    none: ``half_batch`` (only the first half of each batch's rows),
+    ``one_lr`` (the ``dec_lr`` group trains at the main rate, in one group)
+    or ``no_dropout`` (every dropout of the reference left out)."""
     cell, dev = job.cell, job.device
     cfg = cell.config
+    rows = (pool[0][next(iter(pool[0]))].shape[0] // 2
+            if fault == "half_batch" else None)
     ref = seeded_reference(cell, job.seed, dev)[0]
-    total = int(cfg["params"]["max_epochs"]) * int(cfg["steps_per_epoch"])
-    trainer = Trainer(ref, cfg["params"], total, cfg.get("frozen_prefixes", ()))
+    if mode == "bfloat16_pure":
+        ref = ref.to(torch.bfloat16)
+    if fault == "no_dropout":
+        for m in ref.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+    p = cfg["params"]
+    if fault == "one_lr":
+        p = {k: v for k, v in p.items() if k != "dec_lr"}
+    total = int(p["max_epochs"]) * int(cfg["steps_per_epoch"])
+    trainer = Trainer(ref, p, total, cfg.get("frozen_prefixes", ()))
     start = _snapshot(ref)
     cuda = torch.device(dev).type == "cuda"
     out = {"loss": []}
@@ -140,6 +176,9 @@ def reference_steps(job, pool, rec, mode: str = "float32", rows=None) -> dict:
             gen.set_state(rng_noise)
             batch = {k: torch.from_numpy(v[:rows]).to(dev)
                      for k, v in pool[i % len(pool)].items()}
+            if mode == "bfloat16_pure":
+                batch = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                         for k, v in batch.items()}
             step = trainer.step(batch, gen)
             out["loss"].append(step["total"])
             if i == 0:
@@ -246,19 +285,34 @@ def run(job):
         readings=readings(rec, ref))
 
 
-def control_readings(job, mode: str = "tf32") -> dict:
+def faults(cfg: dict) -> list:
+    """The reference-side faults a configuration can have: half the batch
+    always, one rate where the params hold ``dec_lr``, and the dropout left
+    out where the program trains in bfloat16 (whose fused attention draws
+    dropout the reference cannot replay)."""
+    return (["half_batch"] + (["one_lr"] if cfg["params"].get("dec_lr") is not None else [])
+            + (["no_dropout"] if _precision(cfg) == "bfloat16" else []))
+
+
+def control_readings(job, mode: str = "") -> dict:
     """One seed's readings, no window: the program's check steps, the
-    control (the reference in precision ``mode``) and the half-batch fault,
-    each against the float32 reference."""
+    control (the reference in precision ``mode``, by default the control of
+    the configuration's precision) and each of the configuration's
+    ``faults``, each against the float32 reference."""
+    cfg = job.cell.config
+    mode = mode or CONTROL[_precision(cfg)]
     method, params, pool = build_program(job)
     rec = check_steps(job, method, pool)
     del method, params
     gc.collect()
+    if torch.device(job.device).type == "cuda":
+        torch.cuda.empty_cache()
     ref = reference_steps(job, pool, rec)
-    rows = pool[0][next(iter(pool[0]))].shape[0] // 2
     out = {"program": readings(rec, ref), "mode": mode,
-           "control": readings(reference_steps(job, pool, rec, mode), ref),
-           "fault_half_batch": readings(reference_steps(job, pool, rec, rows=rows), ref)}
+           "control": readings(reference_steps(job, pool, rec, mode), ref)}
+    for fault in faults(cfg):
+        out[f"fault_{fault}"] = readings(
+            reference_steps(job, pool, rec, fault=fault), ref)
     if torch.device(job.device).type == "cuda":
         torch.cuda.empty_cache()
     return out

@@ -2,8 +2,10 @@
 with ``read(ctx) -> float | None``; ``ctx`` (a traced run's) holds
 ``trace`` (``core.Trace``), ``steps`` (calls in the traced window),
 ``spans`` (ms by span name), ``flops_per_step()`` (the reference's count),
-``k1_calls`` ([(shape, calls)]) and ``peak`` (the device's row of
-``peaks.json``, or None). A reader that finds nothing returns None."""
+``k1_calls`` ([(shape, calls)]), ``peak`` (the device's row of
+``peaks.json``, or None) and ``precision`` (the configuration's, the
+program's arithmetic: ``float32`` or ``bfloat16``). A reader that finds
+nothing returns None."""
 
 from __future__ import annotations
 
@@ -31,14 +33,16 @@ def k1_roofline(ctx) -> Optional[float]:
 
 
 def mfu(ctx) -> Optional[float]:
-    """% of the device's float32 peak: the reference's FLOPs of a call
-    times the calls of the traced window, over the window."""
+    """% of the device's peak in the configuration's precision (float32's,
+    or bfloat16's for a cell trained under bf16 autocast): the reference's
+    FLOPs of a call times the calls of the traced window, over the window."""
     if ctx.trace is None or ctx.peak is None or not ctx.steps:
         return None
     flops = ctx.flops_per_step()
     if not flops:
         return None
-    return 100.0 * flops * ctx.steps / ctx.trace.window_s / ctx.peak["float32_flop_per_s"]
+    peak = ctx.peak[f"{ctx.precision}_flop_per_s"]
+    return 100.0 * flops * ctx.steps / ctx.trace.window_s / peak
 
 
 def device_idle(ctx) -> Optional[float]:

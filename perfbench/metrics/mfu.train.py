@@ -1,4 +1,5 @@
-"""The whole step's share of the device's float32 peak."""
+"""The whole step's share of the device's peak in the configuration's
+precision."""
 
 from perfbench.metrics.layer import mfu
 

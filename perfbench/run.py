@@ -110,6 +110,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device,
         ctx.trace = (core.Trace(ctx.window.prof, "perfbench.window")
                      if ctx.window.prof is not None else None)
         ctx.peak = None
+        ctx.precision = cell.config.get("precision", "float32")
         if device_info["platform"] == "gpu":
             from perfbench.yardstick import peaks
 

@@ -111,12 +111,12 @@ def test_a_run_loads_nothing_banned():
     or of the JAX package loaded."""
     code = ("import sys, tempfile\n"
             f"sys.path.insert(0, {str(REAL / 'tests')!r})\n"
-            "from tinybench import CELLS, job, tiny_tree\n"
+            "from tinybench import CELLS, STEVE, job, tiny_tree\n"
             "from perfbench import core\n"
             "from perfbench.run import execute\n"
             "with tempfile.TemporaryDirectory() as tmp:\n"
             "    tree = tiny_tree(tmp)\n"
-            "    for name in CELLS:\n"
+            "    for name in CELLS + (STEVE,):\n"
             "        j = job(*tree, name, seconds=0.1)\n"
             "        execute(j.cell, j.seed, j.seconds, False, j.device, j.process_start)\n"
             "assert 'slotformer_tpu_torch' in sys.modules\n"
@@ -139,6 +139,7 @@ def test_reference_imports_nothing_of_the_program():
                 assert n.split(".")[0] in allowed, (path.name, n)
     code = ("import sys\n"
             "import perfbench.reference.stosavi, perfbench.reference.slotformer\n"
+            "import perfbench.reference.steve\n"
             "import perfbench.reference.train\n"
             "assert not [m for m in sys.modules if m.startswith('slotformer_tpu')]\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
