@@ -15,12 +15,18 @@ program trains in: ``bfloat16`` runs the trainer's own bf16 autocast
 float32 with TF32 off; the control is the reference in TF32 for a float32
 cell, and wholly in bfloat16 (weights, activations and Adam's state, no
 float32 copy) for a bfloat16 one. Where the program draws dropout that the
-reference cannot replay (inside a fused attention), the reference draws its
-own, and the limits are set over that spread.
+reference cannot replay (inside a fused attention: a bfloat16 cell), the
+reference draws its own, and the limits are set over that spread. Beside
+that comparison such a cell gets an exact one: in set-up, before the check
+steps, the same method takes ``check_steps`` steps with every dropout
+inactive and is then put back as it was (``exact_steps``); the reference
+follows them with its dropout left out, from the same weights, batches and
+RNG states, and the readings carry the prefix ``exact_``.
 """
 
 from __future__ import annotations
 
+import copy
 import gc
 import os
 import tempfile
@@ -55,6 +61,38 @@ def _precision(cfg: dict) -> str:
     if mode not in PRECISIONS:
         raise ValueError(f"precision {mode!r}: the train kind runs {PRECISIONS}")
     return mode
+
+
+def _exact(cfg: dict) -> bool:
+    """Whether a configuration gets the exact comparison: one that trains
+    in bfloat16, whose fused attention draws dropout the reference cannot
+    replay."""
+    return _precision(cfg) == "bfloat16"
+
+
+def _rng_state(dev):
+    return (torch.cuda.get_rng_state(dev) if torch.device(dev).type == "cuda"
+            else torch.get_rng_state())
+
+
+def _set_rng_state(dev, state) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.set_rng_state(state, dev)
+    else:
+        torch.set_rng_state(state)
+
+
+def _dropouts(model) -> list:
+    """(module, attribute) of every dropout probability of ``model``: each
+    ``nn.Dropout``'s ``p``, and each float ``dropout`` that a fused
+    attention reads."""
+    out = []
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            out.append((m, "p"))
+        elif isinstance(getattr(m, "dropout", None), float):
+            out.append((m, "dropout"))
+    return out
 
 
 def _snapshot(model) -> dict:
@@ -116,7 +154,7 @@ def build_program(job):
     return method, params, pool
 
 
-def check_steps(job, method, pool) -> dict:
+def check_steps(job, method, pool, mark: str = "step") -> dict:
     """The first steps through ``_train_step``: what the reference needs
     to follow them and what the comparison reads from them."""
     model = method.model
@@ -124,10 +162,7 @@ def check_steps(job, method, pool) -> dict:
     n = int(job.cell.traffic["check_steps"])
     rec = {"start": _snapshot(model), "rng": [], "loss": []}
     for i in range(n):
-        rec["rng"].append((torch.cuda.get_rng_state(dev)
-                           if torch.device(dev).type == "cuda"
-                           else torch.get_rng_state(),
-                           method.generator.get_state()))
+        rec["rng"].append((_rng_state(dev), method.generator.get_state()))
         out = method._train_step(pool[i % len(pool)])
         rec["loss"].append(float(out["total_loss"]))
         if i == 0:
@@ -135,43 +170,67 @@ def check_steps(job, method, pool) -> dict:
             rec["grad1"] = {name: (state[q]["exp_avg"] / (1 - BETAS[0])).cpu()
                             for name, q in model.named_parameters()
                             if q in state}
-        job.mark(f"step {i + 1}")
+        job.mark(f"{mark} {i + 1}")
     rec["end"] = _snapshot(model)
     return rec
 
 
+def exact_steps(job, method, pool) -> dict:
+    """``check_steps`` with every dropout of the program inactive, from the
+    method as it stands; then the method is put back as it was: its
+    weights, Adam's state, its step count (which sets the schedule), the
+    global and the noise generator's RNG states and every dropout
+    probability, so that the steps after these run as they would without
+    them."""
+    model, opt, dev = method.model, method.optimizer.optimizer, job.device
+    weights = [q.detach().clone() for q in model.state_dict().values()]
+    adam = copy.deepcopy(opt.state_dict())
+    it, grad_norm = method.it, method._grad_norm
+    rng, noise = _rng_state(dev), method.generator.get_state()
+    probs = [(m, a, getattr(m, a)) for m, a in _dropouts(model)]
+    try:
+        for m, a, _ in probs:
+            setattr(m, a, 0.0)
+        return check_steps(job, method, pool, "exact step")
+    finally:
+        for m, a, p in probs:
+            setattr(m, a, p)
+        with torch.no_grad():
+            for q, w in zip(model.state_dict().values(), weights):
+                q.copy_(w)
+        opt.load_state_dict(adam)
+        method.it, method._grad_norm = it, grad_norm
+        _set_rng_state(dev, rng)
+        method.generator.set_state(noise)
+
+
 def reference_steps(job, pool, rec, mode: str = "float32",
-                    fault: str = "") -> dict:
+                    planted=()) -> dict:
     """The reference's steps from the same weights, batches and RNG states,
-    in precision ``mode`` (``common.precision``), with one ``fault`` or
-    none: ``half_batch`` (only the first half of each batch's rows),
+    in precision ``mode`` (``common.precision``), with the faults
+    ``planted``: ``half_batch`` (only the first half of each batch's rows),
     ``one_lr`` (the ``dec_lr`` group trains at the main rate, in one group)
-    or ``no_dropout`` (every dropout of the reference left out)."""
+    and ``no_dropout`` (every dropout of the reference left out)."""
     cell, dev = job.cell, job.device
     cfg = cell.config
     rows = (pool[0][next(iter(pool[0]))].shape[0] // 2
-            if fault == "half_batch" else None)
+            if "half_batch" in planted else None)
     ref = seeded_reference(cell, job.seed, dev)[0]
     if mode == "bfloat16_pure":
         ref = ref.to(torch.bfloat16)
-    if fault == "no_dropout":
-        for m in ref.modules():
-            if isinstance(m, torch.nn.Dropout):
-                m.p = 0.0
+    if "no_dropout" in planted:
+        for m, a in _dropouts(ref):
+            setattr(m, a, 0.0)
     p = cfg["params"]
-    if fault == "one_lr":
+    if "one_lr" in planted:
         p = {k: v for k, v in p.items() if k != "dec_lr"}
     total = int(p["max_epochs"]) * int(cfg["steps_per_epoch"])
     trainer = Trainer(ref, p, total, cfg.get("frozen_prefixes", ()))
     start = _snapshot(ref)
-    cuda = torch.device(dev).type == "cuda"
     out = {"loss": []}
     with precision(mode, dev):
         for i, (rng_global, rng_noise) in enumerate(rec["rng"]):
-            if cuda:
-                torch.cuda.set_rng_state(rng_global, dev)
-            else:
-                torch.set_rng_state(rng_global)
+            _set_rng_state(dev, rng_global)
             gen = torch.Generator(device=dev)
             gen.set_state(rng_noise)
             batch = {k: torch.from_numpy(v[:rows]).to(dev)
@@ -212,9 +271,16 @@ def readings(rec: dict, ref: dict) -> dict:
     }
 
 
+def exact_readings(exact: dict, ref_exact: dict) -> dict:
+    """``readings`` of the exact pair, each under the prefix ``exact_``."""
+    return {f"exact_{k}": v for k, v in readings(exact, ref_exact).items()}
+
+
 def flops_per_step(job, pool) -> int:
     """FLOPs of one training step (forward and backward) of the reference
-    at the cell's shapes, counted on the meta device."""
+    at the cell's shapes, counted on the meta device, less the reference's
+    ``masked_flops`` where it has them: the work on query-key pairs that a
+    causal mask zeroes, which a causal kernel does not do."""
     cfg = job.cell.config
     mod = reference_module(job.cell)
     with torch.device("meta"):
@@ -229,7 +295,8 @@ def flops_per_step(job, pool) -> int:
         total = sum(trainer.weights.get(k, 1.0) * v for k, v in losses.items())
         torch.autograd.grad(total, trainer.params, allow_unused=True)
 
-    return count_flops(step)
+    masked = getattr(mod, "masked_flops", None)
+    return count_flops(step) - (masked(cfg["params"], batch) if masked else 0)
 
 
 def k1_calls(cell, steps: int, batch: int):
@@ -244,6 +311,7 @@ def k1_calls(cell, steps: int, batch: int):
 def run(job):
     method, params, pool = build_program(job)
     dev = job.device
+    exact = exact_steps(job, method, pool) if _exact(job.cell.config) else None
     rec = check_steps(job, method, pool)
     synchronize(dev)
     setup_s = time.time() - job.process_start
@@ -276,13 +344,16 @@ def run(job):
     gc.collect()
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
-    ref = reference_steps(job, pool, rec)
+    found = readings(rec, reference_steps(job, pool, rec))
+    if exact is not None:
+        found.update(exact_readings(exact, reference_steps(
+            job, pool, exact, planted=("no_dropout",))))
     return SimpleNamespace(
         setup_s=setup_s,
         end_to_end={"train_clips_per_s": win.steps * B / win.elapsed,
                     "train_peak_mem_gib": peak / 2 ** 30},
         memory_peak_bytes=max(peak, setup_peak), attempted=win.steps, layer=layer,
-        readings=readings(rec, ref))
+        readings=found)
 
 
 def faults(cfg: dict) -> list:
@@ -291,17 +362,23 @@ def faults(cfg: dict) -> list:
     out where the program trains in bfloat16 (whose fused attention draws
     dropout the reference cannot replay)."""
     return (["half_batch"] + (["one_lr"] if cfg["params"].get("dec_lr") is not None else [])
-            + (["no_dropout"] if _precision(cfg) == "bfloat16" else []))
+            + (["no_dropout"] if _exact(cfg) else []))
 
 
 def control_readings(job, mode: str = "") -> dict:
     """One seed's readings, no window: the program's check steps, the
     control (the reference in precision ``mode``, by default the control of
     the configuration's precision) and each of the configuration's
-    ``faults``, each against the float32 reference."""
+    ``faults``, each against the float32 reference. Where the configuration
+    gets the exact comparison, each of these also holds its ``exact_``
+    readings, taken with its dropout inactive against the float32
+    reference's with dropout left out, and ``witness_autocast`` holds those
+    of the reference under the trainer's bf16 autocast, a stand-in for a
+    sound bfloat16 program (no control)."""
     cfg = job.cell.config
     mode = mode or CONTROL[_precision(cfg)]
     method, params, pool = build_program(job)
+    exact = exact_steps(job, method, pool) if _exact(cfg) else None
     rec = check_steps(job, method, pool)
     del method, params
     gc.collect()
@@ -312,7 +389,20 @@ def control_readings(job, mode: str = "") -> dict:
            "control": readings(reference_steps(job, pool, rec, mode), ref)}
     for fault in faults(cfg):
         out[f"fault_{fault}"] = readings(
-            reference_steps(job, pool, rec, fault=fault), ref)
+            reference_steps(job, pool, rec, planted=(fault,)), ref)
+    if exact is not None:
+        off = ("no_dropout",)
+        ref_x = reference_steps(job, pool, exact, planted=off)
+        out["program"].update(exact_readings(exact, ref_x))
+        out["control"].update(exact_readings(
+            reference_steps(job, pool, exact, mode, off), ref_x))
+        for fault in faults(cfg):
+            # with its dropout left out, the reference's exact steps are ref_x
+            steps = ref_x if fault == "no_dropout" else reference_steps(
+                job, pool, exact, planted=(fault,) + off)
+            out[f"fault_{fault}"].update(exact_readings(steps, ref_x))
+        out["witness_autocast"] = exact_readings(
+            reference_steps(job, pool, exact, "bfloat16", off), ref_x)
     if torch.device(job.device).type == "cuda":
         torch.cuda.empty_cache()
     return out

@@ -30,7 +30,9 @@ published model pads two on each side); the slot-attention weights'
 softmax is over the slots of the last round, as kernel K1 returns it. The
 self-attention of the token decoder runs in blocks of frames, each block's
 weights recomputed in the backward pass (the same arithmetic in less
-memory: 288 frames x 4 heads x 1024^2 weights are 4.8 GB a layer).
+memory: 288 frames x 4 heads x 1024^2 weights are 4.8 GB a layer). It
+computes every query-key pair, the masked ones too; ``masked_flops`` gives
+the work on those, which a step's count leaves out.
 
 Keys follow the reference checkpoints: ``init_latents``, ``encoder.*``,
 ``encoder_pos_embedding.*``, ``encoder_out_layer.*``, ``slot_attention.*``,
@@ -396,3 +398,17 @@ class STEVE(nn.Module):
 
 def build(params: dict) -> STEVE:
     return STEVE(params)
+
+
+def masked_flops(params: dict, batch: dict) -> int:
+    """The FLOPs of a training step, as ``FlopCounterMode`` counts this
+    model's ``train_loss`` and its gradient, that fall on the n (n - 1) / 2
+    masked query-key pairs of the token decoder's causal self-attention
+    (n tokens a frame): a causal kernel skips them. Per layer, frame and
+    pair, the logit and the weighted sum take 2 d FLOPs each forward, and
+    the two input gradients of each twice that again."""
+    dd = params["dec_dict"]
+    frames = batch["img"].shape[0] * batch["img"].shape[1]
+    n = (params["resolution"][0] // params["dvae_dict"]["down_factor"]) ** 2
+    pairs = n * (n - 1) // 2
+    return 3 * 2 * 2 * dd["dec_num_layers"] * frames * dd["dec_d_model"] * pairs

@@ -189,7 +189,8 @@ def test_bfloat16_cell_trains_under_autocast_and_reads_correct(tree):
     assert not train.build_program(other)[0].use_fp16
     result, checks = _run(tree)
     assert result["correct"], checks
-    assert set(checks) == {"loss_gap", "grad_gap", "change_gap"}
+    assert set(checks) == {"loss_gap", "grad_gap", "change_gap", "exact_loss_gap",
+                           "exact_grad_gap", "exact_change_gap"}
 
 
 def test_reference_is_the_program_without_dropout(tree):
@@ -199,13 +200,10 @@ def test_reference_is_the_program_without_dropout(tree):
     j.cell.config["precision"] = "float32"
     torch.manual_seed(j.seed)
     method, _, pool = train.build_program(j)
-    for m in method.model.modules():
-        if isinstance(m, nn.Dropout):
-            m.p = 0.0
-        elif isinstance(getattr(m, "dropout", None), float):
-            m.dropout = 0.0
+    for m, a in train._dropouts(method.model):
+        setattr(m, a, 0.0)
     rec = train.check_steps(j, method, pool)
-    r = train.readings(rec, train.reference_steps(j, pool, rec, fault="no_dropout"))
+    r = train.readings(rec, train.reference_steps(j, pool, rec, planted=("no_dropout",)))
     assert r["loss_gap"] < 1e-6 and r["grad_gap"] < 1e-5 and r["change_gap"] < 1e-4, r
 
 
@@ -223,11 +221,8 @@ def _no_decoder_dropout(mp):
     loss = PortSTEVE.train_loss
 
     def no_dropout(self, batch, generator=None):
-        for m in self.trans_decoder.modules():
-            if isinstance(m, nn.Dropout):
-                m.p = 0.0
-            elif isinstance(getattr(m, "dropout", None), float):
-                m.dropout = 0.0
+        for m, a in train._dropouts(self.trans_decoder):
+            setattr(m, a, 0.0)
         return loss(self, batch, generator)
 
     mp.setattr(PortSTEVE, "train_loss", no_dropout)
@@ -268,6 +263,8 @@ def test_pure_bfloat16_control_refused(tree):
     assert core.judge(r["program"], j.cell.limits)[0], r
     for key in ("control", "fault_half_batch", "fault_one_lr", "fault_no_dropout"):
         assert not core.judge(r[key], j.cell.limits)[0], (key, r)
+    exact = {k: v for k, v in j.cell.limits.items() if k.startswith("exact_")}
+    assert core.judge(r["witness_autocast"], exact)[0], r
     float_cell = job(*tree, "stosavi_clevrer.train")
     assert train.CONTROL[float_cell.cell.config["precision"]] == "tf32"
 

@@ -26,8 +26,15 @@ STEVE = "steve_physion.train"
 # 9.1e-5, grad 0.27, change 0.25; the pure-bfloat16 control's least loss
 # 3.4e-3 (its change reads 1); the faults' least: half the batch loss
 # 1.1e-2, one rate for both groups change 9.4, dropout left out loss
-# 2.2e-3, a state left unchanged change 1
-STEVE_LIMITS = {"loss_gap": 1e-3, "grad_gap": 0.6, "change_gap": 0.6}
+# 2.2e-3, a state left unchanged change 1. The exact comparison (dropout
+# inactive on both sides), 12 seeds: the program's largest loss 9.2e-5,
+# grad 0.35, change 0.41; the control's least loss 1.9e-3 (change 1); half
+# the batch loss 5.8e-3, one rate change 9.4, a state left unchanged
+# change 1; the reference under autocast at most loss 1.1e-4, grad 0.35,
+# change 0.41
+STEVE_LIMITS = {"loss_gap": 1e-3, "grad_gap": 0.6, "change_gap": 0.6,
+                "exact_loss_gap": 6e-4, "exact_grad_gap": 0.6,
+                "exact_change_gap": 0.6}
 SEED = 2 ** 31 + 11
 
 
