@@ -30,6 +30,15 @@ exits non-zero:
                between its sweep and its finishing pass; then drives K2's
                entry point once (forward and backward) with its launch
                count reset.
+     decoder_conv - kernel K3, the SAVi decoder's 5x5 stride-1 layer on
+               the tensor cores (three TF32 products a float32 product), at
+               the rollout call's 2352 images of 64x64 and at PHYRE's
+               128x128: its forward and its input gradient against float64,
+               beside cuDNN's float32 (TF32 off) on the same inputs; ms of
+               K3 (forward and input gradient) beside its bound, the plain
+               version's and ``F.conv_transpose2d`` + ReLU's (the yardstick:
+               cuDNN, TF32 off); K3's launches in one CLEVRER decoder
+               forward and in one step of its input gradient.
   5. extract - the port's ``extract_video_slots`` with the full-width
                ``stosavi_clevrer`` config (random weights from a seed) over
                synthetic 64x64 videos, chunked with slot carry-over; checks
@@ -263,8 +272,11 @@ extraction and planning, and the two ranks of ``ddp_savi`` (summed); its
 ``steve_case`` holds K1 at the STEVE
 extraction shape, ``steve_train_case`` at STEVE's training shape, with its
 gradient check, ``obj3d_case`` at OBJ3D's, and ``phyre_train_case`` and
-``phyre_plan_case`` at PHYRE's. Without a CUDA device it exits 1 and prints
-no result.
+``phyre_plan_case`` at PHYRE's. K3's ``launches_by_path`` counts its launches
+on each main path the phases time (``wall_s``, the count reset before the
+path runs), the ranks of ``ddp_savi`` summed; the run fails if StoSAVi's
+training, the rollout, SlotFormer's training or ``ddp_savi`` launched none.
+Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -420,13 +432,25 @@ def host_enqueue_ms(fn, iters: int = 100) -> float:
     return 1e3 * dt / iters
 
 
-def wall_s(fn):
+# K3's launches on each main path a phase runs through ``wall_s``
+K3_LAUNCHES = {}
+
+
+def wall_s(fn, k3_path=None):
+    """``fn()`` and its seconds on the wall clock; with ``k3_path``, K3's
+    launches inside it are recorded as ``K3_LAUNCHES[k3_path]``."""
     import torch
 
+    from slotformer_tpu_torch.kernels import decoder_conv as k3
+
     torch.cuda.synchronize()
+    if k3_path is not None:
+        k3.LAUNCHES = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
+    if k3_path is not None:
+        K3_LAUNCHES[k3_path] = k3.LAUNCHES
     return out, time.perf_counter() - t0
 
 
@@ -628,6 +652,105 @@ def phase_kernel_update():
     return results, launches
 
 
+# K3's bound: three TF32 products a float32 multiply-add at the H100's dense
+# TF32 rate (NVIDIA data sheet, 700 W)
+TF32_FLOP_PER_S = 495e12
+# (N, H, W) of the stride-1 layer: the rollout call's 2352 images (8 x 42
+# frames x 7 slots) of CLEVRER, and PHYRE's 128x128 layer at 256 images
+K3_CASES = (("rollout", (2352, 64, 64)), ("phyre", (256, 128, 128)))
+
+
+def k3_bound(N, H, W):
+    """Least time for K3's work: its float32 multiply-adds as three TF32
+    products each at the dense TF32 rate, against its input and output read
+    and written once at 3.35 TB/s."""
+    flops = 2 * N * H * W * 64 * 64 * 25
+    t_ops = 3 * flops / TF32_FLOP_PER_S
+    t_bytes = 2 * 4 * N * 64 * H * W / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops)
+
+
+def phase_decoder_conv():
+    import torch
+
+    from slotformer_tpu_torch.kernels import decoder_conv as k3
+    from slotformer_tpu_torch.models.savi import SpatialBroadcastDecoder
+
+    results = {}
+    for tag, (N, H, W) in K3_CASES:
+        g = torch.Generator(device=DEVICE).manual_seed(len(results))
+        # activations in channels-last memory, as the decoder's layers hand
+        # them on
+        cl = torch.channels_last
+        x = torch.relu(torch.randn(N, 64, H, W, device=DEVICE, generator=g)).contiguous(
+            memory_format=cl)
+        w = torch.randn(64, 64, 5, 5, device=DEVICE, generator=g) * 1600 ** -0.5
+        b = 0.1 * torch.randn(64, device=DEVICE, generator=g)
+        gy = torch.randn(N, 64, H, W, device=DEVICE, generator=g).contiguous(memory_format=cl)
+        errs = {}
+        y = k3.decoder_conv_s1(x, w, b)
+        want = k3.decoder_conv_plain(x.double(), w.double(), b.double())
+        errs["forward"] = (y.double() - want).abs().max().item()
+        errs["forward_cudnn"] = (k3.decoder_conv_plain(x, w, b).double()
+                                 - want).abs().max().item()
+        del want
+        dx = k3.input_grad(gy, y, w)
+        want = k3.input_grad_plain(gy.double(), y.double(), w.double())
+        errs["input_grad"] = (dx.double() - want).abs().max().item()
+        errs["input_grad_cudnn"] = (k3.input_grad_plain(gy, y, w).double()
+                                    - want).abs().max().item()
+        del want, dx
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: k3.decoder_conv_s1(x, w, b), iters=10)
+        grad_ms = cuda_ms(lambda: k3.input_grad(gy, y, w), iters=10)
+        kernel_ms = kernel_split_ms(lambda: k3.decoder_conv_s1(x, w, b),
+                                    ("decoder_conv_s1",), iters=5)["decoder_conv_s1"]
+        library_ms = cuda_ms(lambda: torch.relu(torch.nn.functional.conv_transpose2d(
+            x, w, b, padding=2)), iters=10)
+        plain_ms = cuda_ms(lambda: k3.decoder_conv_plain(x, w, b), iters=10)
+        library_grad_ms = cuda_ms(lambda: k3.input_grad_plain(gy, y, w), iters=10)
+        bound_ms, bound_by, flops = k3_bound(N, H, W)
+        ok = (errs["forward"] <= 2 * errs["forward_cudnn"]
+              and errs["input_grad"] <= 2 * errs["input_grad_cudnn"])
+        emit(phase="decoder_conv", name="decoder_conv_s1", case=tag,
+             shape=dict(N=N, C=64, H=H, W=W), max_abs_err=errs, ms=ms,
+             kernel_only_ms=kernel_ms, input_grad_ms=grad_ms,
+             float32_tflop_per_s=flops / ms / 1e9, bound_ms=bound_ms,
+             bound_by=bound_by, plain_ms=plain_ms, library_ms=library_ms,
+             library_input_grad_ms=library_grad_ms, ok=ok)
+        if not ok:
+            raise AssertionError(f"K3 is less accurate than cuDNN float32 ({tag})")
+        results[tag] = dict(max_abs_err=max(errs["forward"], errs["input_grad"]),
+                            ms=ms, input_grad_ms=grad_ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        del x, y, gy
+        torch.cuda.empty_cache()
+    # launches on the decoder's paths: a rollout decode (no gradient) and a
+    # frozen-decoder training chunk (forward and input gradient)
+    torch.manual_seed(0)
+    dec = SpatialBroadcastDecoder((64, 64), 128).to(DEVICE)
+    slots = torch.randn(16, 7, 128, device=DEVICE)
+    k3.LAUNCHES = 0
+    with torch.no_grad():
+        dec(slots)
+    decode = k3.LAUNCHES
+    dec.requires_grad_(False)
+    slots.requires_grad_(True)
+    k3.LAUNCHES = 0
+    torch.autograd.grad(dec(slots)[0].sum(), slots)
+    frozen_step = k3.LAUNCHES
+    emit(phase="decoder_conv", check="launches", decode=decode,
+         frozen_decoder_input_grad=frozen_step)
+    if (decode, frozen_step) != (1, 2):
+        raise AssertionError(f"K3 launches {decode} (decode), {frozen_step} "
+                             f"(forward and input gradient): expected 1, 2")
+    results["launches_check"] = dict(decode=decode,
+                                     frozen_decoder_input_grad=frozen_step)
+    return results
+
+
 def phase_extract(k1_ms):
     """``k1_ms``: one K1 call at the extraction shape, from the kernel phase."""
     from unittest import mock
@@ -654,7 +777,7 @@ def phase_extract(k1_ms):
     slot_attention = model.cell.slot_attention
     with mock.patch.object(slot_attention, "packed_weights",
                            wraps=slot_attention.packed_weights) as packs:
-        slots, dt = wall_s(run)
+        slots, dt = wall_s(run, k3_path="extract")
     launches = k1.LAUNCHES
     pack_calls = packs.call_count
     n_packs = 50
@@ -701,15 +824,24 @@ def _tied_pair(card_step, cpu_step):
     side at every ``F.relu`` (see RELU_TIE_RTOL). ``ties`` gives the ReLU
     calls, the units whose side the CPU would have taken otherwise, and the
     largest |input| among those over its call's largest |input|. Raises if
-    the two runs do not make the same ReLU calls."""
+    the two runs do not make the same ReLU calls. On the card K3 takes the
+    decoder's stride-1 layer with its ReLU inside the kernel, where the CPU
+    calls ``F.relu``: its side is recorded from its output."""
     import torch.nn.functional as F
 
-    relu, sides = F.relu, []
+    from slotformer_tpu_torch.kernels import decoder_conv
+
+    relu, k3, sides = F.relu, decoder_conv.decoder_conv_s1, []
     ties = dict(relu_calls=0, untied=0, untied_rel_x=0.0)
 
     def record(x, inplace=False):
         sides.append(x.detach() > 0)
         return relu(x, inplace=inplace)
+
+    def record_k3(x, weight, bias):
+        y = k3(x, weight, bias)
+        sides.append(y.detach() > 0)
+        return y
 
     def replay(x, inplace=False):
         if ties["relu_calls"] == len(sides) or sides[ties["relu_calls"]].shape != x.shape:
@@ -724,12 +856,12 @@ def _tied_pair(card_step, cpu_step):
         return x * side
 
     try:
-        F.relu = record
+        F.relu, decoder_conv.decoder_conv_s1 = record, record_k3
         card = card_step()
-        F.relu = replay
+        F.relu, decoder_conv.decoder_conv_s1 = replay, k3
         cpu = cpu_step()
     finally:
-        F.relu = relu
+        F.relu, decoder_conv.decoder_conv_s1 = relu, k3
     if ties["relu_calls"] != len(sides):
         raise AssertionError("the card and the CPU made different ReLU calls")
     return card, cpu, ties
@@ -814,7 +946,7 @@ def phase_train(ckp):
     params.seed = 0
     k1.LAUNCHES = 0
     method, fit_s = wall_s(lambda: train_cli.run(
-        params, ckp, device=DEVICE, san_check_val_step=1))
+        params, ckp, device=DEVICE, san_check_val_step=1), k3_path="train")
     launches, steps = k1.LAUNCHES, method.it
     val_batches = 1 + len(method.val_loader)  # sanity check + epoch end
     # the decomposition video of the epoch's end encodes n_samples whole
@@ -930,6 +1062,7 @@ def phase_two_ranks(workdir):
     ddp = [rec[0] for rec in recs]
     tp = [rec[1] for rec in recs]
     launches = [rec["k1_launches"] for rec in ddp]
+    K3_LAUNCHES["ddp_train"] = sum(rec["k3_launches"] for rec in ddp)
     ok_ddp = (_ranks_ok(ddp[0]) and ddp[0]["grid"] == {"data": 2, "model": 1}
               and launches == [T, T])
     emit(phase="ddp_savi", check="two ranks on one card over gloo",
@@ -938,6 +1071,7 @@ def phase_two_ranks(workdir):
          max_param_diff=ddp[0]["max_param_diff"],
          tol=dict(loss_rel=RANKS_LOSS_RTOL, param_abs=RANKS_PARAM_ATOL),
          losses=ddp[0]["losses"], k1_launches_by_rank=launches,
+         k3_launches_by_rank=[rec["k3_launches"] for rec in ddp],
          step_seconds_by_rank=[rec["seconds"] for rec in ddp],
          spawn_seconds=dt, ok=ok_ddp)
     whole = (sf.rollout_dict["ffn_dim"], sf.rollout_dict["d_model"])
@@ -1124,7 +1258,7 @@ def phase_rollout(slots_dict):
     run = lambda: model.rollout(past, pred_len, decode=True, with_gt=False)  # noqa: E731
     with torch.inference_mode():
         run()  # warm-up
-        out, dt = wall_s(run)
+        out, dt = wall_s(run, k3_path="rollout")
         small_gpu = model.rollout(past[:1], 2, decode=True, with_gt=False)
     cpu_model = build_model(params, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
@@ -1222,7 +1356,7 @@ def phase_slots_file(workdir):
     k1.LAUNCHES = 0
     slots, dt = wall_s(lambda: {
         split: extract_video_slots(savi, ds, bs, SF_DATA["chunk_len"], seed=0)
-        for split, ds in sets.items()})
+        for split, ds in sets.items()}, k3_path="slotformer_slots_file")
     launches = k1.LAUNCHES
     slots_path = os.path.join(workdir, "synthetic_slots.pkl")
     dump_obj(slots, slots_path)
@@ -1345,7 +1479,8 @@ def phase_train_slotformer(slots_path, savi_ckp, workdir):
     ckp = os.path.join(workdir, "slotformer")
     params.seed = 0
     method, fit_s = wall_s(lambda: train_cli.run(
-        params, ckp, device=DEVICE, san_check_val_step=1))
+        params, ckp, device=DEVICE, san_check_val_step=1),
+        k3_path="slotformer_train")
     model, steps = method.model, method.it
     nc = -(-B * model.rollout_len // model.dec_chunk_frames)
     log, train_log = _read_log(ckp)
@@ -1481,7 +1616,7 @@ def phase_test_vp(slots_path, weight, workdir):
     vis = os.path.join(workdir, "vis")
     stats, dt = wall_s(lambda: test_vp.main(
         ["--params", cfg, "--weight", weight, "--batch_size", "8",
-         "--vis_dir", vis, "--device", DEVICE]))
+         "--vis_dir", vis, "--device", DEVICE]), k3_path="test_vp")
     T_ro = SF_DATA["video_len"] - 6
     results = stats["results"]
     finite = (sorted(results) == sorted(test_vp.METRICS) and all(
@@ -1756,7 +1891,7 @@ def phase_train_savi_obj3d(workdir):
     params.seed = 0
     k1.LAUNCHES = 0
     method, fit_s = wall_s(lambda: train_cli.run(
-        params, ckp, device=DEVICE, san_check_val_step=1))
+        params, ckp, device=DEVICE, san_check_val_step=1), k3_path="obj3d_train")
     launches, steps = k1.LAUNCHES, method.it
     val_batches = 1 + len(method.val_loader)  # sanity check + epoch end
     # the decomposition video encodes n_samples whole val videos of
@@ -1810,7 +1945,7 @@ def phase_obj3d_slots(workdir, savi_ckp):
     k1.LAUNCHES = 0
     slots, dt = wall_s(lambda: {
         split: extract_video_slots(model, ds, bs, OBJ3D["chunk_len"])
-        for split, ds in sets.items()})
+        for split, ds in sets.items()}, k3_path="obj3d_extract")
     launches = k1.LAUNCHES
     dump_obj(slots, os.path.join(workdir, "data", "OBJ3D", "obj3d_slots.pkl"))
     frame_steps = sum(-(-len(ds.files) // bs) for ds in sets.values()) * T
@@ -1887,7 +2022,8 @@ def phase_train_slotformer_obj3d(workdir, savi_ckp):
     ckp = os.path.join(workdir, "ckpts", "slotformer_obj3d_params")
     params.seed = 0
     method, fit_s = wall_s(lambda: train_cli.run(
-        params, ckp, device=DEVICE, san_check_val_step=1))
+        params, ckp, device=DEVICE, san_check_val_step=1),
+        k3_path="obj3d_slotformer_train")
     model, steps = method.model, method.it
     log, train_log = _read_log(ckp)
     sd = {k: v.cpu() for k, v in model.state_dict().items()}
@@ -1925,7 +2061,7 @@ def phase_test_vp_obj3d(workdir, weight):
     vis = os.path.join(workdir, "vis")
     stats, dt = wall_s(lambda: test_vp.main(
         ["--params", cfg, "--weight", weight, "--vis_dir", vis,
-         "--device", DEVICE]))
+         "--device", DEVICE]), k3_path="obj3d_test_vp")
     T_ro = OBJ3D["video_len"] - 6
     results = stats["results"]
     finite = (sorted(results) == sorted(test_vp.METRICS) and all(
@@ -2018,7 +2154,7 @@ def phase_vqa(workdir, savi_ckp, sf_weight):
     k1.LAUNCHES = 0
     gt, extract_s = wall_s(lambda: {
         split: extract_video_slots(savi, ds, bs, VQA["chunk_len"])
-        for split, ds in sets.items()})
+        for split, ds in sets.items()}, k3_path="vqa_extract")
     launches = k1.LAUNCHES
     gt_path = os.path.join(root, "clevrer_slots.pkl")
     dump_obj(gt, gt_path)
@@ -2468,7 +2604,8 @@ def phase_train_steve(workdir, dvae_ckp):
     init = build_model(params, device="cpu").state_dict()
     k1.LAUNCHES = 0
     method, fit_s = wall_s(lambda: train_cli.run(
-        params, ckp, device=DEVICE, use_fp16=True, san_check_val_step=1))
+        params, ckp, device=DEVICE, use_fp16=True, san_check_val_step=1),
+        k3_path="steve_train")
     launches, steps = k1.LAUNCHES, method.it
     val_batches = 1 + len(method.val_loader)  # sanity check + epoch end
     # the decomposition video encodes n_samples whole val videos, one K1
@@ -2625,7 +2762,7 @@ def phase_steve_extract(workdir, steve_ckp, k1_ms):
             ["--params", cfg, "--weight", ckp, "--subset", subset,
              "--save_path", os.path.join(data, f"{subset}_slots.pkl"),
              "--batch_size", str(bs), "--chunk_len", str(chunk),
-             "--device", DEVICE]))
+             "--device", DEVICE]), k3_path=f"steve_extract_{subset}")
         slots = load_obj(path)
         link = os.path.join(ckp_dir, f"{subset}_slots.pkl")
         n_videos = {k: len(v) for k, v in slots.items()}
@@ -2762,7 +2899,8 @@ def phase_train_steve_slotformer(workdir, steve_ckp):
     torch.manual_seed(params.seed)  # the weights run() starts from
     init = build_model(params, device="cpu").state_dict()
     method, fit_s = wall_s(lambda: train_cli.run(
-        params, ckp, device=DEVICE, san_check_val_step=1))
+        params, ckp, device=DEVICE, san_check_val_step=1),
+        k3_path="steve_slotformer_train")
     model, steps = method.model, method.it
     log, train_log = _read_log(ckp)
     sd = {k: v.cpu() for k, v in model.state_dict().items()}
@@ -3151,7 +3289,7 @@ def phase_train_savi_phyre(workdir):
     params.seed = 0
     k1.LAUNCHES = 0
     method, fit_s = wall_s(lambda: train_cli.run(
-        params, ckp, device=DEVICE, san_check_val_step=1))
+        params, ckp, device=DEVICE, san_check_val_step=1), k3_path="phyre_train")
     launches, steps = k1.LAUNCHES, method.it
     val_batches = 1 + len(method.val_loader)  # sanity check + epoch end
     # the decomposition video encodes n_samples whole val videos of
@@ -3204,7 +3342,8 @@ def phase_phyre_slots(workdir, savi_ckp):
             os.path.join("data", "PHYRE"), "--bs", str(bs), "--vid_len", str(T),
             "--device", DEVICE]
     k1.LAUNCHES = 0
-    dirs, dt = wall_s(lambda: extract_phyre_slots.main(argv))
+    dirs, dt = wall_s(lambda: extract_phyre_slots.main(argv),
+                      k3_path="phyre_extract")
     launches = k1.LAUNCHES
     train_set, val_set = build_dataset(params)
     n = {"train": len(train_set), "val": len(val_set)}
@@ -3326,7 +3465,8 @@ def phase_train_slotformer_phyre(workdir):
     ckp = os.path.join("checkpoints", "slotformer_phyre_params-fold0")
     params.seed = 0
     method, fit_s = wall_s(lambda: train_cli.run(
-        params, ckp, device=DEVICE, san_check_val_step=1))
+        params, ckp, device=DEVICE, san_check_val_step=1),
+        k3_path="phyre_slotformer_train")
     model, steps = method.model, method.it
     log, train_log = _read_log(ckp)
     sd = {k: v.cpu() for k, v in model.state_dict().items()}
@@ -3367,7 +3507,8 @@ def phase_rollout_phyre(workdir, sf_ckp):
     cfg, params = phyre_params(workdir, "slotformer_phyre_params-fold0")
     dirs, dt = wall_s(lambda: rollout_phyre_slots.main(
         ["--params", cfg, "--weight", sf_ckp, "--save_path",
-         os.path.join("data", "PHYRE"), "--device", DEVICE]))
+         os.path.join("data", "PHYRE"), "--device", DEVICE]),
+        k3_path="phyre_rollout")
     T, S, D = (params.video_len, params.slot_dict["num_slots"],
                params.slot_dict["slot_size"])
     src = params.slots_root
@@ -3472,7 +3613,8 @@ def phase_plan_phyre(workdir, savi_ckp, sf_ckp, readout_ckp):
             "--bs", str(bs), "--num_acts", str(acts), "--total_split", "2",
             "--device", DEVICE]
     k1.LAUNCHES = 0
-    (_, stats0), dt0 = wall_s(lambda: plan.main(argv + ["--split", "0"]))
+    (_, stats0), dt0 = wall_s(lambda: plan.main(argv + ["--split", "0"]),
+                              k3_path="phyre_plan")
     launches = k1.LAUNCHES
     out = {}
     _, dt1 = wall_s(lambda: out.update(s1=plan.main(argv + ["--split", "1"])[1]))
@@ -3709,12 +3851,13 @@ def main() -> int:
          matmul_tf32=False, cudnn_tf32=False)
 
     t0 = time.perf_counter()
+    sources = build.KERNEL_SOURCES
     build.build()
-    ptxas = [line.strip() for name in build.KERNEL_SOURCES
+    ptxas = [line.strip() for name in sources
              for line in build.build_log(name).splitlines()
              if "Compiling entry function" in line or "registers" in line
              or "spill" in line]
-    emit(phase="build", sources=list(build.KERNEL_SOURCES),
+    emit(phase="build", sources=list(sources),
          seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     def timed(fn, *args):
@@ -3726,6 +3869,7 @@ def main() -> int:
 
     k1_results = timed(phase_kernel)
     k2_results, k2_launches = timed(phase_kernel_update)
+    k3_results = timed(phase_decoder_conv)
     slots, extract_launches = timed(phase_extract, k1_results["clevrer"]["ms"])
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, trained_savi = timed(
@@ -3854,7 +3998,19 @@ def main() -> int:
              launches_by_path=dict(entry_point=k2_launches),
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None)])
+             bound_by=k2["bound_by"], library_ms=None),
+        dict(name="decoder_conv_s1", route="cuda",
+             source="slotformer_tpu_torch/kernels/csrc/decoder_conv.cu",
+             replaces=None, case="rollout",
+             launches_by_path=K3_LAUNCHES,
+             launches_check=k3_results["launches_check"],
+             **k3_results["rollout"], phyre_case=k3_results["phyre"])])
+    # every SAVi decoder forward on a CUDA float32 input outside autocast
+    # takes K3: these paths decode
+    silent = [p for p in ("train", "rollout", "slotformer_train", "ddp_train")
+              if not K3_LAUNCHES.get(p)]
+    if silent:
+        raise AssertionError(f"K3 did not run on {silent}")
     emit(ok=True, device=dict(platform="gpu", kind=kind,
                               count=torch.cuda.device_count()))
     return 0

@@ -1,0 +1,9 @@
+"""Device ms a rollout call spends in kernel K3, the decoder's 5x5 stride-1
+layer (kernels named ``decoder_conv_s1*``), over the traced window's calls;
+None where no such kernel ran."""
+
+from perfbench.metrics.kernel_ms import kernel_ms_per_call
+
+
+def read(ctx):
+    return kernel_ms_per_call(ctx, "decoder_conv_s1")

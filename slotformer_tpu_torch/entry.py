@@ -153,6 +153,7 @@ def step_against_one_process(device, params: BaseParams,
     after the steps; with ``ckp_dir``, whether a checkpoint written on the
     grid loads in one process with equal tensors (parameters and Adam
     moments) and one written by one process loads on the grid."""
+    from .kernels import decoder_conv as k3
     from .kernels import slot_attention as k1
     from .models import build_model
     from .runtime.checkpoint import latest_checkpoint
@@ -167,13 +168,14 @@ def step_against_one_process(device, params: BaseParams,
     method = _method(params, model, grid, len(batches), rows,
                      ckp_path=ckp_dir or "", val=val)
 
-    launches0 = k1.LAUNCHES
+    launches0, k3_launches0 = k1.LAUNCHES, k3.LAUNCHES
     t0 = time.perf_counter()
     outs = [method._train_step(shard_or_replicate(grid, b)) for b in batches]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     launches = k1.LAUNCHES - launches0
+    k3_launches = k3.LAUNCHES - k3_launches0
     full = method._full_state_dict()
     tp_layout = {k: (tuple(p.shape), tuple(full[k].shape))
                  for k, p in method.model.named_parameters()
@@ -182,6 +184,7 @@ def step_against_one_process(device, params: BaseParams,
                linear1=next(iter(tp_layout.values()), None))
     if count_launches:
         res["k1_launches"] = launches
+        res["k3_launches"] = k3_launches
     if val is not None:
         val_avgs = method.validation_epoch()
 

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import decoder_conv
+
 LN_EPS = 1e-6
 
 
@@ -74,7 +76,12 @@ class ConvNormAct(nn.Sequential):
 
 
 class DeconvNormAct(nn.Sequential):
-    """ConvTranspose2d (+ activation), reference geometry, no norm."""
+    """ConvTranspose2d (+ activation), reference geometry, no norm.
+
+    A CUDA float32 input outside autocast, on a 64 -> 64 5x5 stride-1 layer
+    with a ReLU (the SAVi decoder's last transposed convolution), runs kernel
+    K3 (``kernels/decoder_conv.py``) in place of the two modules; everything
+    else runs them as they are (``takes_decoder_conv``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 5, stride: int = 2, norm: str = "",
@@ -84,6 +91,29 @@ class DeconvNormAct(nn.Sequential):
             padding=kernel_size // 2, output_padding=stride - 1)
         _check_norm(norm)
         super().__init__(*[m for m in (deconv, _act(act)) if m is not None])
+
+    def takes_decoder_conv(self, x: torch.Tensor) -> bool:
+        """Whether ``forward`` runs K3 on ``x``: all of the input's device,
+        dtype and autocast state and the layer's geometry fit the kernel."""
+        conv = self[0]
+        return (x.device.type == "cuda" and x.dtype == torch.float32
+                and not torch.is_autocast_enabled("cuda")
+                and conv.kernel_size == (decoder_conv.KERNEL_SIZE,) * 2
+                and conv.stride == (1, 1)
+                and conv.padding == (decoder_conv.PADDING,) * 2
+                and conv.output_padding == (0, 0) and conv.dilation == (1, 1)
+                and conv.groups == 1
+                and conv.in_channels == conv.out_channels == decoder_conv.CHANNELS
+                and len(self) == 2 and isinstance(self[1], nn.ReLU))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.takes_decoder_conv(x):
+            # the kernel reads channels-last memory, which the decoder's
+            # activations already are (a copy otherwise)
+            return decoder_conv.decoder_conv_s1(
+                x.contiguous(memory_format=torch.channels_last), self[0].weight,
+                self[0].bias)
+        return super().forward(x)
 
 
 class MLP(nn.Sequential):

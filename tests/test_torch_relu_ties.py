@@ -68,3 +68,21 @@ def test_runs_with_different_relu_calls_are_refused():
     with pytest.raises(AssertionError, match="different ReLU calls"):
         chip_smoke._tied_pair(lambda: _mlp_grads(x, w1, b, w2), lambda: None)
     assert F.relu is RELU
+
+
+def test_k3_relu_inside_the_kernel_is_recorded_from_its_output():
+    # the card's stride-1 decoder layer calls decoder_conv_s1 (its ReLU inside
+    # the kernel); the CPU calls F.relu after the transposed convolution
+    from slotformer_tpu_torch.kernels import decoder_conv
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 3, 4, 5, generator=g)
+    w = torch.randn(3, 4, 5, 5, generator=g)
+    b = torch.randn(4, generator=g)
+    k3 = decoder_conv.decoder_conv_s1
+    first, second, ties = chip_smoke._tied_pair(
+        lambda: decoder_conv.decoder_conv_s1(x, w, b),
+        lambda: F.relu(F.conv_transpose2d(x, w, b, padding=2)))
+    assert ties == dict(relu_calls=1, untied=0, untied_rel_x=0.0)
+    assert torch.allclose(first, second, atol=1e-6)
+    assert F.relu is RELU and decoder_conv.decoder_conv_s1 is k3
